@@ -1,7 +1,12 @@
-// The whole-race Monte Carlo kernel for Hopper (sm_90a).
+// The whole-race Monte Carlo kernels for Hopper (sm_90a).
 //
-// Replaces monte_carlo_gp_tpu/ops/pallas_engine.py::_race_kernel (the Pallas
-// TPU kernel body, single-race launch). Each simulation runs one whole race
+// K1, race_kernel, replaces monte_carlo_gp_tpu/ops/pallas_engine.py::_race_kernel
+// (the Pallas TPU kernel body) in its single-race launch, _pallas_counts_one
+// (pallas_engine.py:838). K2, season_kernel, replaces the same body with
+// season=True in its race-batched launch, _pallas_counts_season_one
+// (pallas_engine.py:895): every race of a season in one launch. Both run one
+// block body, race_block, as the Pallas launches run one kernel body.
+// Each simulation runs one whole race
 // -- Gumbel-max grid, lap-1 start model, laps 2..race_laps (race control,
 // dirty air, DNF, lap time, pits, three overtake passes, DRS) and the
 // classification -- and adds its finishing order to a (D, D) [driver,
@@ -29,6 +34,17 @@
 // once per block, not once per simulation. Integer atomics keep the counts
 // bitwise deterministic, and the Philox counter is (global sim index, draw
 // block, row), so the counts do not depend on the launch shape.
+//
+// K2 is bound the same way, by instruction issue. Its grid is 2-D,
+// (blocks_per_race, R): row r of blocks reads race r's parameters, scalars,
+// grid table, lap count and key words, and adds into race r's histogram.
+// A season's races are uneven (44 to 78 laps in the synthetic 2024 season):
+// each block's lap loop runs to its own race's lap count, so a short race
+// costs only its own laps, and the wrapper gives each race the single-race
+// launch's grid (1,056 blocks of 8 warps on 132 SMs), so the season holds
+// many times more short blocks than the SMs take at once: the SMs that
+// finish a short race's blocks early take queued blocks of other races
+// instead of idling through a ragged tail of long blocks.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -136,10 +152,16 @@ __device__ __forceinline__ int condition_compound(int track, int remaining) {
   return track == FULL_WET ? WET : (track == DAMP ? INTERMEDIATE : dry);
 }
 
-__global__ void race_kernel(const float* __restrict__ pmat, const float* __restrict__ scal_g,
-                            const float* __restrict__ grid_log, int* __restrict__ counts,
-                            int d, int race_laps, uint32_t key0, uint32_t key1,
-                            uint32_t sim_offset, uint32_t n_sims) {
+// One block's share of one race, the body of both launches: the block's
+// warps walk simulations sim_offset + [block * warps_per_block + warp, n_sims)
+// with a stride of n_blocks * warps_per_block, and the block adds its (d, d)
+// histogram to `counts` once at the end.
+__device__ __forceinline__ void race_block(const float* __restrict__ pmat,
+                                           const float* __restrict__ scal_g,
+                                           const float* __restrict__ grid_log,
+                                           int* __restrict__ counts, int d, int race_laps,
+                                           uint32_t key0, uint32_t key1, uint32_t sim_offset,
+                                           uint32_t n_sims, uint32_t block, uint32_t n_blocks) {
   extern __shared__ int smem[];
   int* hist = smem;                                         // d * d
   float* scal = reinterpret_cast<float*>(smem + d * d);     // N_SCALARS
@@ -168,8 +190,8 @@ __global__ void race_kernel(const float* __restrict__ pmat, const float* __restr
   const float overtake_delta = scal[OVERTAKE_DELTA];
   const float tenth = (float)lane * 0.1f;
 
-  const uint32_t total_warps = gridDim.x * warps_per_block;
-  for (uint32_t sim = blockIdx.x * warps_per_block + warp; sim < n_sims; sim += total_warps) {
+  const uint32_t total_warps = n_blocks * warps_per_block;
+  for (uint32_t sim = block * warps_per_block + warp; sim < n_sims; sim += total_warps) {
     Stream rng{key0, key1, sim_offset + sim, (uint32_t)lane, 0u, make_uint4(0u, 0u, 0u, 0u)};
 
     // ---- grid: masked Gumbel-max per slot ----------------------------------
@@ -380,6 +402,34 @@ __global__ void race_kernel(const float* __restrict__ pmat, const float* __restr
   }
 }
 
+// K1: one race, a 1-D grid over its simulations.
+__global__ void race_kernel(const float* __restrict__ pmat, const float* __restrict__ scal_g,
+                            const float* __restrict__ grid_log, int* __restrict__ counts,
+                            int d, int race_laps, uint32_t key0, uint32_t key1,
+                            uint32_t sim_offset, uint32_t n_sims) {
+  race_block(pmat, scal_g, grid_log, counts, d, race_laps, key0, key1, sim_offset, n_sims,
+             blockIdx.x, gridDim.x);
+}
+
+// K2: a season, grid (blocks_per_race, R). Row blockIdx.y is race r: its
+// inputs, lap count, key words and histogram; its simulations are 0..n_sims-1
+// of its own stream, so race r equals K1 at race r's seed bit for bit.
+__global__ void season_kernel(const float* __restrict__ pmat_s,
+                              const float* __restrict__ scal_s,
+                              const float* __restrict__ grid_log_s,
+                              const int* __restrict__ race_laps,
+                              const uint32_t* __restrict__ keys, int* __restrict__ counts,
+                              int d, uint32_t n_sims) {
+  const int r = blockIdx.y;
+  race_block(pmat_s + (size_t)r * d * N_PCOLS, scal_s + (size_t)r * N_SCALARS,
+             grid_log_s + (size_t)r * d * d, counts + (size_t)r * d * d, d, race_laps[r],
+             keys[2 * r], keys[2 * r + 1], 0u, n_sims, blockIdx.x, gridDim.x);
+}
+
+size_t shared_bytes(int d, int warps_per_block) {
+  return (size_t)(d * d + 32 + 32 * warps_per_block) * sizeof(int);
+}
+
 }  // namespace
 
 // counts (d, d) int32 must be zeroed by the caller. Returns cudaGetLastError().
@@ -389,8 +439,26 @@ extern "C" int mcgp_race_counts(const float* pmat, const float* scal, const floa
                                 int warps_per_block, int n_blocks, void* stream) {
   if (d < 1 || d > kMaxDrivers || warps_per_block < 1 || warps_per_block > 32 || n_blocks < 1)
     return (int)cudaErrorInvalidValue;
-  const size_t shared = (size_t)(d * d + 32 + 32 * warps_per_block) * sizeof(int);
-  race_kernel<<<n_blocks, 32 * warps_per_block, shared, (cudaStream_t)stream>>>(
-      pmat, scal, grid_log, counts, d, race_laps, key0, key1, sim_offset, n_sims);
+  race_kernel<<<n_blocks, 32 * warps_per_block, shared_bytes(d, warps_per_block),
+                (cudaStream_t)stream>>>(pmat, scal, grid_log, counts, d, race_laps, key0, key1,
+                                        sim_offset, n_sims);
+  return (int)cudaGetLastError();
+}
+
+// pmat_s (R, d, 8), scal_s (R, 24), grid_log_s (R, d, d) float32; race_laps
+// (R,) int32; keys (R, 2) uint32 key words; counts (R, d, d) int32 zeroed by
+// the caller. Returns cudaGetLastError().
+extern "C" int mcgp_season_counts(const float* pmat_s, const float* scal_s,
+                                  const float* grid_log_s, const int* race_laps,
+                                  const uint32_t* keys, int* counts, int n_races, int d,
+                                  uint32_t n_sims, int warps_per_block, int blocks_per_race,
+                                  void* stream) {
+  if (d < 1 || d > kMaxDrivers || warps_per_block < 1 || warps_per_block > 32 ||
+      blocks_per_race < 1 || n_races < 1 || n_races > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(blocks_per_race, n_races);
+  season_kernel<<<grid, 32 * warps_per_block, shared_bytes(d, warps_per_block),
+                  (cudaStream_t)stream>>>(pmat_s, scal_s, grid_log_s, race_laps, keys, counts,
+                                          d, n_sims);
   return (int)cudaGetLastError();
 }

@@ -41,7 +41,8 @@ def philox4x32_10(
     key: tuple[int, int],
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Four uint32 output words (as int64 tensors) for broadcastable counter
-    words c0..c3 (uint32 values in int64) and a key of two uint32 ints."""
+    words c0..c3 (uint32 values in int64) and a key of two uint32 ints.
+    Counter words that are all Python ints give Python ints."""
     c0, c1, c2, c3 = counter
     k0, k1 = key[0] & _MASK32, key[1] & _MASK32
     for i in range(ROUNDS):
@@ -60,6 +61,27 @@ def seed_key(seed: int) -> tuple[int, int]:
     if not 0 <= seed < 2**64:
         raise ValueError(f"seed must be in [0, 2**64), got {seed}")
     return seed & _MASK32, (seed >> 32) & _MASK32
+
+
+# The last counter word of a fold. Every draw of the race stream has 0 there
+# (counter (sim, draw / 4, row, 0)), so a fold never reads a draw's words.
+_FOLD_DOMAIN = 0x464F4C44  # "FOLD"
+
+
+def fold_in(seed: int, data: int) -> int:
+    """A new 64-bit seed derived from (seed, data), the counterpart of
+    `jax.random.fold_in`: one Philox4x32-10 evaluation under `seed_key(seed)`
+    at counter (data low word, data high word, 0, "FOLD"); its first two
+    output words are the new seed's low and high words. Race r of a season
+    is seeded with `fold_in(season_seed, r)`."""
+    data = int(data)
+    if not 0 <= data < 2**64:
+        raise ValueError(f"data must be in [0, 2**64), got {data}")
+    # Python ints: the products stay exact, and _mulhilo's masks apply as is
+    w0, w1, _, _ = philox4x32_10(
+        (data & _MASK32, data >> 32, 0, _FOLD_DOMAIN), seed_key(seed)
+    )
+    return w0 | (w1 << 32)
 
 
 class PhiloxBits:

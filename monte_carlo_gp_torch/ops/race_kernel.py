@@ -2,10 +2,11 @@
 lap 1, laps 2..race_laps, classification) and adds its finishing order to a
 (D, D) [driver, position] histogram.
 
-`race_counts` is the entry point. For CPU tensors it runs
-`race_counts_plain`, the plain PyTorch version; for CUDA tensors it
-launches the hand-written kernel in `csrc/race_kernel.cu` (one warp per
-simulation, one car per lane), or raises. Both follow the Pallas kernel
+`race_counts` is the entry point for one race, `season_counts` for a
+season of races in one launch. For CPU tensors they run `race_counts_plain`
+and `season_counts_plain`, the plain PyTorch versions; for CUDA tensors
+they launch the hand-written kernels in `csrc/race_kernel.cu` (one warp per
+simulation, one car per lane, one race body for both), or raise. Both follow the Pallas kernel
 body `monte_carlo_gp_tpu/ops/pallas_engine.py::_race_kernel` operation for
 operation, in float32 and in the same order, and draw from the same Philox
 stream (`ops/philox.py`), so on the same inputs they agree up to the last
@@ -21,6 +22,7 @@ overtake pass (3 passes).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -85,6 +87,46 @@ def pack_inputs(params: SimParams) -> tuple[torch.Tensor, torch.Tensor, torch.Te
     safe = params.grid_probs.clamp_min(0.0)
     grid_log = torch.where(safe > 0, torch.log(safe.clamp_min(1e-38)), -INF)
     return pmat.contiguous(), scal.contiguous(), grid_log.to(torch.float32).contiguous()
+
+
+def _pad_params(params: SimParams, d_max: int) -> SimParams:
+    """`params` with its driver axis padded to `d_max` slots: padding slots
+    are inactive, with zero pace, degradation, variance, DNF rates and grid
+    probabilities."""
+    extra = d_max - params.n_drivers
+    if extra == 0:
+        return params
+
+    def pad1(t):
+        return torch.nn.functional.pad(t, (0, extra))
+
+    return dataclasses.replace(
+        params,
+        grid_probs=torch.nn.functional.pad(params.grid_probs, (0, extra, 0, extra)),
+        base_pace=pad1(params.base_pace),
+        tire_deg=pad1(params.tire_deg),
+        variance=pad1(params.variance),
+        dnf_rate=pad1(params.dnf_rate),
+        team_dnf_rate=pad1(params.team_dnf_rate),
+        active=pad1(params.active),
+    )
+
+
+def pack_season_inputs(
+    params_list: list[SimParams],
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
+    """(pmat_s (R, D, 8), scal_s (R, 24), grid_log_s (R, D, D), D) for a
+    season of R races on their params' device, D the widest field. Narrower
+    fields are padded as `monte_carlo_gp_tpu.parallel.sharded.stack_params`
+    pads them: padding slots are inactive (they start retired and classify
+    after every real car), with zero pace, degradation, variance and DNF
+    rates and zero grid probabilities (-1e30 in grid_log)."""
+    if not params_list:
+        raise ValueError("a season needs at least one race")
+    d_max = max(p.n_drivers for p in params_list)
+    packed = [pack_inputs(_pad_params(p, d_max)) for p in params_list]
+    pmat_s, scal_s, grid_log_s = (torch.stack(parts).contiguous() for parts in zip(*packed))
+    return pmat_s, scal_s, grid_log_s, d_max
 
 
 def _rank_tier(d: int) -> tuple[int, int]:
@@ -397,7 +439,9 @@ def _check_inputs(pmat, scal, grid_log, race_laps, n_sims, sim_offset, max_d):
     if not 1 <= d <= max_d:
         raise ValueError(
             f"{d} drivers: this path takes 1..{max_d} (the plain version's rank "
-            f"keys pack *{MAX_DRIVERS}+row; the CUDA kernel keeps one car per lane)"
+            f"keys pack *{MAX_DRIVERS}+row; the CUDA kernels keep one car per lane, "
+            f"and fields of {MAX_CUDA_DRIVERS + 1}..{MAX_DRIVERS} drivers on CUDA "
+            "are ROADMAP B-1b)"
         )
     if race_laps < 1:
         raise ValueError(f"race_laps must be >= 1, got {race_laps}")
@@ -442,6 +486,59 @@ def race_counts_plain(
     return counts.view(d, d)
 
 
+def _check_season_inputs(pmat_s, scal_s, grid_log_s, race_laps, n_sims, seeds, max_d):
+    """(R, D, race_laps as ints, seeds as ints) after the single-race checks
+    on every race of the season."""
+    if pmat_s.dim() != 3 or scal_s.dim() != 2 or grid_log_s.dim() != 3:
+        raise ValueError(
+            f"expected pmat_s (R, D, {N_PCOLS}), scal_s (R, {N_SCALARS}), grid_log_s "
+            f"(R, D, D); got {tuple(pmat_s.shape)}, {tuple(scal_s.shape)}, "
+            f"{tuple(grid_log_s.shape)}"
+        )
+    n_races = pmat_s.shape[0]
+    laps = [int(x) for x in race_laps]
+    seeds = [int(x) for x in seeds]
+    if n_races < 1 or not n_races == scal_s.shape[0] == grid_log_s.shape[0] == len(laps) == len(seeds):
+        raise ValueError(
+            f"a season of {n_races} races needs that many scal_s and grid_log_s rows, "
+            f"lap counts and seeds; got {scal_s.shape[0]}, {grid_log_s.shape[0]}, "
+            f"{len(laps)}, {len(seeds)}"
+        )
+    for name, t in (("pmat_s", pmat_s), ("scal_s", scal_s), ("grid_log_s", grid_log_s)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for r in range(n_races):
+        d = _check_inputs(pmat_s[r], scal_s[r], grid_log_s[r], laps[r], n_sims, 0, max_d)
+        philox.seed_key(seeds[r])
+    return n_races, d, laps, seeds
+
+
+def season_counts_plain(
+    pmat_s: torch.Tensor,
+    scal_s: torch.Tensor,
+    grid_log_s: torch.Tensor,
+    race_laps,
+    n_sims_per_race: int,
+    seeds,
+    bits=None,
+) -> torch.Tensor:
+    """The plain PyTorch version of the season kernel, on pmat_s's device:
+    (R, D, D) int64 counts, race r being `race_counts_plain` of race r's
+    inputs, its own lap count `race_laps[r]` and simulations
+    0..n_sims_per_race-1 of the stream of `seeds[r]` (or of `bits`, the same
+    bit source for every race)."""
+    n_races, _, laps, seeds = _check_season_inputs(
+        pmat_s, scal_s, grid_log_s, race_laps, n_sims_per_race, seeds, MAX_DRIVERS
+    )
+    return torch.stack([
+        race_counts_plain(
+            pmat_s[r], scal_s[r], grid_log_s[r], laps[r], n_sims_per_race, seeds[r],
+            bits=bits,
+        )
+        for r in range(n_races)
+    ])
+
+
 # ---------------------------------------------------------------------------
 # The CUDA kernel
 # ---------------------------------------------------------------------------
@@ -471,6 +568,14 @@ def build():
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int,
             ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+        fn = lib.mcgp_season_counts
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_uint32,
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
@@ -510,8 +615,7 @@ def race_counts(
     if _lib is None:
         build()
     with torch.cuda.device(pmat.device):
-        n_sm = torch.cuda.get_device_properties(pmat.device).multi_processor_count
-        n_blocks = min(-(-n_sims // warps_per_block), n_sm * max(1, 64 // warps_per_block))
+        n_blocks = min(-(-n_sims // warps_per_block), _grid_blocks(pmat.device, warps_per_block))
         err = _lib.mcgp_race_counts(
             pmat.data_ptr(), scal.data_ptr(), grid_log.data_ptr(), counts.data_ptr(),
             d, int(race_laps), key0, key1, sim_offset, n_sims,
@@ -524,6 +628,104 @@ def race_counts(
 
 
 race_counts.launches = 0
+
+
+def _grid_blocks(device, warps_per_block: int) -> int:
+    """Blocks of a full launch: 64 warps per SM's worth, so every SM holds
+    as many blocks as fit at once and the rest queue behind them."""
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    return n_sm * max(1, 64 // warps_per_block)
+
+
+def season_counts(
+    pmat_s: torch.Tensor,
+    scal_s: torch.Tensor,
+    grid_log_s: torch.Tensor,
+    race_laps,
+    n_sims_per_race: int,
+    seeds,
+    warps_per_block: int = DEFAULT_WARPS_PER_BLOCK,
+    blocks_per_race: int | None = None,
+) -> torch.Tensor:
+    """(R, D, D) [race, driver, position] finish counts of a season: race r
+    runs simulations 0..n_sims_per_race-1 of the Philox stream of
+    `seeds[r]` over its own `race_laps[r]` laps, so it equals
+    `race_counts(pmat_s[r], scal_s[r], grid_log_s[r], race_laps[r],
+    n_sims_per_race, seeds[r])` bit for bit.
+
+    CPU tensors run `season_counts_plain` (int64 counts). CUDA tensors run
+    the whole season as one launch of the season kernel on the current
+    stream (int32 counts; D <= 32); a launch error raises. The counts do not
+    depend on `warps_per_block` or `blocks_per_race` (default: each race
+    gets the single-race launch's grid, so a season holds many more blocks
+    than the SMs take at once, and the blocks of short races free their
+    SMs for queued ones instead of leaving a ragged tail)."""
+    if pmat_s.device.type == "cpu":
+        return season_counts_plain(
+            pmat_s, scal_s, grid_log_s, race_laps, n_sims_per_race, seeds
+        )
+    if pmat_s.device.type != "cuda":
+        raise ValueError(f"season_counts runs on cpu or cuda tensors, not {pmat_s.device}")
+    n_races, d, laps, seeds = _check_season_inputs(
+        pmat_s, scal_s, grid_log_s, race_laps, n_sims_per_race, seeds, MAX_CUDA_DRIVERS
+    )
+    if not 1 <= warps_per_block <= 32:
+        raise ValueError(f"warps_per_block must be in 1..32, got {warps_per_block}")
+    if n_races > 65535:
+        raise ValueError(f"a season launch takes at most 65535 races, got {n_races}")
+    dev = pmat_s.device
+    counts = torch.zeros((n_races, d, d), dtype=torch.int32, device=dev)
+    if n_sims_per_race == 0:
+        return counts
+    # the key words as uint32 bit patterns in int32, two per race
+    key_words = [w - 2**32 if w >= 2**31 else w for s in seeds for w in philox.seed_key(s)]
+    keys = torch.tensor(key_words, dtype=torch.int32, device=dev)
+    laps_t = torch.tensor(laps, dtype=torch.int32, device=dev)
+    if _lib is None:
+        build()
+    with torch.cuda.device(dev):
+        if blocks_per_race is None:
+            blocks_per_race = _grid_blocks(dev, warps_per_block)
+        blocks_per_race = min(blocks_per_race, -(-n_sims_per_race // warps_per_block))
+        if not 1 <= blocks_per_race <= 2**31 - 1:
+            raise ValueError(f"blocks_per_race must be >= 1, got {blocks_per_race}")
+        err = _lib.mcgp_season_counts(
+            pmat_s.data_ptr(), scal_s.data_ptr(), grid_log_s.data_ptr(),
+            laps_t.data_ptr(), keys.data_ptr(), counts.data_ptr(),
+            n_races, d, n_sims_per_race, warps_per_block, blocks_per_race,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"season kernel launch failed: CUDA error {err}")
+    season_counts.launches += 1
+    return counts
+
+
+season_counts.launches = 0
+
+
+def run_monte_carlo_season(
+    params_list: list[SimParams],
+    race_laps_list: list[int],
+    season_seed: int,
+    n_sims_per_race: int,
+) -> torch.Tensor:
+    """(R, D, D) float32 [race, driver, position] finish probabilities of a
+    season on the params' device, D the widest field (narrower fields are
+    padded; their real drivers finish in positions 1..d) — the counterpart
+    of `monte_carlo_gp_tpu.ops.pallas_engine.run_monte_carlo_pallas_season`,
+    with exactly `n_sims_per_race` simulations per race.
+
+    Race r is seeded with `philox.fold_in(season_seed, r)`, so it equals
+    `run_monte_carlo_kernel` of race r's (padded) params at that seed."""
+    if n_sims_per_race < 1:
+        raise ValueError(f"n_sims_per_race must be >= 1, got {n_sims_per_race}")
+    if len(race_laps_list) != len(params_list):
+        raise ValueError("race_laps_list must match params_list")
+    pmat_s, scal_s, grid_log_s, _ = pack_season_inputs(params_list)
+    seeds = [philox.fold_in(season_seed, r) for r in range(len(params_list))]
+    counts = season_counts(pmat_s, scal_s, grid_log_s, race_laps_list, n_sims_per_race, seeds)
+    return counts.to(torch.float32) / n_sims_per_race
 
 
 def run_monte_carlo_kernel(

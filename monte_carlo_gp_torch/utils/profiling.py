@@ -31,6 +31,24 @@ class Phase:
             self.counts[name] = self.counts.get(name, 0) + 1
 
 
+@contextlib.contextmanager
+def timed_calls(owner, name: str, timers: Phase):
+    """Within the block, every call of `owner.<name>` (a module's function,
+    say, that other code of the module calls by name) adds its wall time to
+    `timers` under `name`."""
+    fn = getattr(owner, name)
+
+    def timed(*args, **kwargs):
+        with timers(name):
+            return fn(*args, **kwargs)
+
+    setattr(owner, name, timed)
+    try:
+        yield
+    finally:
+        setattr(owner, name, fn)
+
+
 def phase_report(timers: Phase) -> str:
     lines = ["phase timings:"]
     for name, total in sorted(timers.totals.items(), key=lambda kv: -kv[1]):

@@ -64,3 +64,36 @@ def test_seeds_key_distinct_streams_and_are_validated():
         philox.seed_key(-1)
     with pytest.raises(ValueError):
         philox.PhiloxBits(seed=0, sim_offset=2**32 - 2, n_sims=4, max_rows=8)
+
+
+# fold_in(seed, data) values the season seeding depends on; a change to the
+# fold moves every batched backtest's numbers
+FOLD_IN_PINNED = [
+    ((0, 0), 0x474747C87FE143BF),
+    ((42 * 1_000_003 + 2024, 3), 0x6171620ED57C9982),
+]
+
+
+@pytest.mark.parametrize("args, expected", FOLD_IN_PINNED, ids=["zero", "season_race3"])
+def test_fold_in_pinned_values(args, expected):
+    assert philox.fold_in(*args) == expected
+
+
+def test_fold_in_is_deterministic_and_distinct():
+    seed = 42 * 1_000_003 + 2024
+    seeds = [philox.fold_in(seed, r) for r in range(1000)]
+    assert seeds == [philox.fold_in(seed, r) for r in range(1000)]
+    assert len(set(seeds)) == 1000 and seed not in seeds
+    assert all(0 <= s < 2**64 for s in seeds)
+    # another season seed gives other race seeds
+    assert not set(seeds) & {philox.fold_in(seed + 1, r) for r in range(1000)}
+    # the fold's counter is never a draw's: its last word is the domain tag
+    words = philox.philox4x32_10(
+        tuple(torch.tensor([c], dtype=torch.int64) for c in (3, 0, 0, philox._FOLD_DOMAIN)),
+        philox.seed_key(seed),
+    )
+    assert int(words[0][0]) | (int(words[1][0]) << 32) == seeds[3]
+    with pytest.raises(ValueError):
+        philox.fold_in(seed, -1)
+    with pytest.raises(ValueError):
+        philox.fold_in(2**64, 0)

@@ -188,6 +188,15 @@ def test_profile_script_refuses_to_run_without_a_gpu(tmp_path):
     assert proc.stdout == ""
 
 
+SEASON_PATH_MODULES = (
+    "monte_carlo_gp_torch.backtest",
+    "monte_carlo_gp_torch.tune",
+    "monte_carlo_gp_torch.validate.backtest",
+    "monte_carlo_gp_torch.validate.metrics",
+    "monte_carlo_gp_torch.validate.tune",
+)
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import importlib, pkgutil, sys\n"
@@ -196,13 +205,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "    importlib.import_module(m.name)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'monte_carlo_gp_tpu')]\n"
         "assert not bad, bad\n"
+        f"missing = [m for m in {SEASON_PATH_MODULES!r} if m not in sys.modules]\n"
+        "assert not missing, missing\n"
         "print(len([k for k in sys.modules if k.startswith('monte_carlo_gp_torch')]))\n"
     )
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 15
+    assert int(proc.stdout.strip()) >= 15 + len(SEASON_PATH_MODULES)
 
 
 if __name__ == "__main__":

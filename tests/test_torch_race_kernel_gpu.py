@@ -1,6 +1,7 @@
-"""The CUDA race kernel (`monte_carlo_gp_torch/csrc/race_kernel.cu`) against
-its plain PyTorch version on the same Philox stream. Every test here needs a
-CUDA device and skips without one.
+"""The CUDA race kernels (`monte_carlo_gp_torch/csrc/race_kernel.cu`: K1, one
+race, and K2, a season in one launch) against their plain PyTorch versions on
+the same Philox stream. Every test here needs a CUDA device and skips
+without one.
 
 This file imports torch and the port only, so it also runs on a GPU machine
 without jax:
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from monte_carlo_gp_torch.config import make_sim_params
+from monte_carlo_gp_torch.ops import philox
 from monte_carlo_gp_torch.ops import race_kernel as rk
 
 # only last-bit differences of log/cos between the kernel and the plain
@@ -107,3 +109,70 @@ def test_kernel_rejects_wide_fields(cuda_device):
     pmat, scal, grid_log = rk.pack_inputs(make_sim_params(**kw, device=cuda_device))
     with pytest.raises(ValueError):
         rk.race_counts(pmat, scal, grid_log, 10, 64)
+
+
+# ---- K2, the season kernel ----------------------------------------------------
+
+SEASON_SEED = 2024
+
+
+def season_inputs(device, widths=(20, 18, 6), **overrides):
+    """A ragged season: fields of 20, 18 and 6 drivers (padded to 20), the
+    second one wet with frequent race-control events."""
+    plist = [
+        make_sim_params(**field(d, **(overrides if i == 1 else {})), device=device)
+        for i, d in enumerate(widths)
+    ]
+    pmat_s, scal_s, grid_log_s, _ = rk.pack_season_inputs(plist)
+    seeds = [philox.fold_in(SEASON_SEED, r) for r in range(len(widths))]
+    return pmat_s, scal_s, grid_log_s, seeds
+
+
+WET_CHAOS = dict(track_condition="wet", sc_prob=0.08, vsc_prob=0.10, red_flag_prob=0.01)
+
+
+@pytest.mark.gpu
+def test_season_kernel_matches_plain_version(cuda_device):
+    pmat_s, scal_s, grid_log_s, seeds = season_inputs(cuda_device, **WET_CHAOS)
+    laps, n = [57, 44, 78], 8_192
+    before = rk.season_counts.launches, rk.race_counts.launches
+    kernel = rk.season_counts(pmat_s, scal_s, grid_log_s, laps, n, seeds)
+    torch.cuda.synchronize()
+    assert (rk.season_counts.launches, rk.race_counts.launches) == (before[0] + 1, before[1])
+    assert kernel.dtype == torch.int32 and kernel.shape == (3, 20, 20)
+    plain = rk.season_counts_plain(pmat_s, scal_s, grid_log_s, laps, n, seeds)
+    diff = (kernel.long() - plain).abs().max().item()
+    assert diff <= max(MAX_ABS_COUNT_ERR, MAX_ABS_PROB_ERR * n)
+    for r, d in enumerate((20, 18, 6)):
+        real = kernel[r, :d, :d]
+        assert bool((real.sum(1) == n).all()), r  # real drivers finish in 1..d
+        assert int(kernel[r].sum()) == 20 * n
+
+
+@pytest.mark.gpu
+def test_season_race_equals_single_race_kernel_bitwise(cuda_device):
+    pmat_s, scal_s, grid_log_s, seeds = season_inputs(cuda_device, **WET_CHAOS)
+    laps, n = [57, 44, 78], 5_000
+    season = rk.season_counts(pmat_s, scal_s, grid_log_s, laps, n, seeds)
+    for r in range(3):
+        single = rk.race_counts(pmat_s[r], scal_s[r], grid_log_s[r], laps[r], n, seed=seeds[r])
+        assert torch.equal(season[r], single), r
+
+
+@pytest.mark.gpu
+def test_season_kernel_ignores_launch_shape(cuda_device):
+    pmat_s, scal_s, grid_log_s, seeds = season_inputs(cuda_device)
+    laps, n = [30, 25, 40], 5_000
+    a = rk.season_counts(pmat_s, scal_s, grid_log_s, laps, n, seeds)
+    b = rk.season_counts(pmat_s, scal_s, grid_log_s, laps, n, seeds,
+                         warps_per_block=3, blocks_per_race=7)
+    c = rk.season_counts(pmat_s, scal_s, grid_log_s, laps, n, seeds,
+                         warps_per_block=16, blocks_per_race=1)
+    assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.gpu
+def test_season_kernel_rejects_wide_fields(cuda_device):
+    pmat_s, scal_s, grid_log_s, seeds = season_inputs(cuda_device, widths=(20, 33))
+    with pytest.raises(ValueError, match="B-1b"):
+        rk.season_counts(pmat_s, scal_s, grid_log_s, [10, 10], 64, seeds)

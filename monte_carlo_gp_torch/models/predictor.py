@@ -34,7 +34,8 @@ from monte_carlo_gp_torch.data.loader import F1DataLoader
 from monte_carlo_gp_torch.models.elo import F1EloSystem
 from monte_carlo_gp_torch.models.features import F1FeatureEngine, _driver_groups, _to_float
 from monte_carlo_gp_torch.models.safety import InsufficientDataError
-from monte_carlo_gp_torch.ops.race_kernel import run_monte_carlo_kernel
+from monte_carlo_gp_torch.ops.engine import run_monte_carlo
+from monte_carlo_gp_torch.ops.race_kernel import MAX_DRIVERS, run_monte_carlo_kernel
 from monte_carlo_gp_torch.utils.logging import log_event
 
 # FP-session fallback chains per prediction point.
@@ -357,10 +358,27 @@ class F1Predictor:
     ) -> np.ndarray:
         """Run the Monte Carlo for a prepared weekend on the predictor's
         device; returns the (D, D) finish-probability matrix. `seed=None`
-        means 0."""
+        means 0.
+
+        Fields of up to MAX_DRIVERS (128) drivers run on the race kernel.
+        Its rank keys pack rank*M+row (M = 32/64/128 by field size), which
+        caps the driver axis at 128; the reference simulator is size-generic
+        (simulation.py:59-100), so wider fields run on the lap engine
+        (`ops.engine.run_monte_carlo`) on the same device, as the JAX
+        package routes them (its predictor.py:444-456). This routes by field
+        size; a kernel error still raises."""
         n = int(n_simulations)
+        seed = 0 if seed is None else seed
         params = plan.params.to(self.device)
-        probs = run_monte_carlo_kernel(params, 0 if seed is None else seed, n, plan.total_laps)
+        if params.n_drivers > MAX_DRIVERS:
+            log_event(
+                "engine_fallback_eager",
+                reason=f"n_drivers>{MAX_DRIVERS} exceeds the race kernel's rank-key packing",
+                n_drivers=params.n_drivers,
+            )
+            probs = run_monte_carlo(params, seed, n, plan.total_laps)
+        else:
+            probs = run_monte_carlo_kernel(params, seed, n, plan.total_laps)
         self.last_effective_sims = n
         return probs.cpu().numpy()
 

@@ -6,7 +6,7 @@ lap 1, laps 2..race_laps, classification) and adds its finishing order to a
 season of races in one launch. For CPU tensors they run `race_counts_plain`
 and `season_counts_plain`, the plain PyTorch versions; for CUDA tensors
 they launch the hand-written kernels in `csrc/race_kernel.cu` (one warp per
-simulation, one car per lane, one race body for both), or raise. Both follow the Pallas kernel
+simulation, ceil(D / 32) cars per lane, one race body for both), or raise. Both follow the Pallas kernel
 body `monte_carlo_gp_tpu/ops/pallas_engine.py::_race_kernel` operation for
 operation, in float32 and in the same order, and draw from the same Philox
 stream (`ops/philox.py`), so on the same inputs they agree up to the last
@@ -23,12 +23,14 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import torch
 
 from monte_carlo_gp_torch import config as cfg
 from monte_carlo_gp_torch.config import SimParams
 from monte_carlo_gp_torch.ops import philox
+from monte_carlo_gp_torch.ops.ranking import inverse_permutation, rank_key, rank_tier
 
 INF = 1e30
 
@@ -47,12 +49,10 @@ INF = 1e30
 _BASE, _DEG, _VAR, _DNF, _TEAMDNF, _ACTIVE = range(6)
 N_PCOLS = 8
 
-# The CUDA kernel keeps one car per lane of a warp.
-MAX_CUDA_DRIVERS = 32
-# The plain version's rank keys pack (quantized time) * M + row; M = 128
-# bounds the field (the same limit as the Pallas kernel).
+# The rank keys pack (quantized time) * M + row; M = 128 bounds the field
+# of both the plain version and the CUDA kernels (the same limit as the
+# Pallas kernel). Wider fields run on the lap engine (ops/engine.py).
 MAX_DRIVERS = 128
-DEFAULT_WARPS_PER_BLOCK = 8
 
 _RACE_CONTROL_ROWS = 8
 
@@ -129,33 +129,12 @@ def pack_season_inputs(
     return pmat_s, scal_s, grid_log_s, d_max
 
 
-def _rank_tier(d: int) -> tuple[int, int]:
-    """(Q, M) of the rank key: quantize time to 2**Q units in the last
-    place, leave room for M rows."""
-    return (2, 32) if d <= 32 else ((3, 64) if d <= 64 else (4, 128))
-
-
-_IKEY_BASE = 0x3E800000  # the int32 view of 0.25f
-
-
-def rank_key(cum, row, q_shift, row_mult, dnf=None):
-    """Unique int32 keys ordered by (cum quantized to 2**Q ULP, row): exact
-    cumulative-time ties are real and must break by row index. DNF cars
-    sort last with distinct sentinels."""
-    ikey = cum.clamp_min(0.25).view(torch.int32)
-    ikey = ((ikey - _IKEY_BASE) >> q_shift) * row_mult + row
-    if dnf is None:
-        return ikey
-    return torch.where(dnf, 2_100_000_000 + row, ikey)
-
-
 def _ranks(key):
     """(rank, order) over the driver axis for UNIQUE keys: rank_i =
     #{j: k_j < k_i} and order[p] = the row of rank p. A sort gives the same
     ranks as the Pallas kernel's pairwise count because no two keys tie."""
     order = torch.argsort(key, dim=1)
-    iota = torch.arange(key.shape[1], device=key.device).expand_as(order)
-    return torch.empty_like(order).scatter_(1, order, iota), order
+    return inverse_permutation(order), order
 
 
 def _rank_of_tiebreak(key, row):
@@ -177,7 +156,7 @@ def _simulate(pmat, scal, grid_log, race_laps: int, bits, n: int):
     dev = pmat.device
     d = pmat.shape[0]
     f32, i32 = torch.float32, torch.int32
-    q_shift, row_mult = _rank_tier(d)
+    q_shift, row_mult = rank_tier(d)
     s = scal.tolist()  # exact float32 values as Python floats
     track = int(s[_TRACK_COND])
     drs_delta = s[_DRS_DELTA]
@@ -422,7 +401,7 @@ def _simulate(pmat, scal, grid_log, race_laps: int, bits, n: int):
     return torch.where(dnf, n_active + dnf_rank, active_rank) + 1
 
 
-def _check_inputs(pmat, scal, grid_log, race_laps, n_sims, sim_offset, max_d):
+def _check_inputs(pmat, scal, grid_log, race_laps, n_sims, sim_offset):
     d = pmat.shape[0] if pmat.dim() == 2 else -1
     if pmat.shape != (d, N_PCOLS) or grid_log.shape != (d, d) or scal.shape != (N_SCALARS,):
         raise ValueError(
@@ -436,12 +415,10 @@ def _check_inputs(pmat, scal, grid_log, race_laps, n_sims, sim_offset, max_d):
             raise ValueError(f"{name} must be contiguous")
         if t.device != pmat.device:
             raise ValueError(f"{name} is on {t.device}, pmat on {pmat.device}")
-    if not 1 <= d <= max_d:
+    if not 1 <= d <= MAX_DRIVERS:
         raise ValueError(
-            f"{d} drivers: this path takes 1..{max_d} (the plain version's rank "
-            f"keys pack *{MAX_DRIVERS}+row; the CUDA kernels keep one car per lane, "
-            f"and fields of {MAX_CUDA_DRIVERS + 1}..{MAX_DRIVERS} drivers on CUDA "
-            "are ROADMAP B-1b)"
+            f"{d} drivers: the race kernel takes 1..{MAX_DRIVERS} (its rank keys "
+            f"pack *{MAX_DRIVERS}+row); wider fields run on ops.engine.run_monte_carlo"
         )
     if race_laps < 1:
         raise ValueError(f"race_laps must be >= 1, got {race_laps}")
@@ -468,7 +445,7 @@ def race_counts_plain(
     the default is the Philox stream of `seed`, and then simulations are
     processed in chunks to bound memory (the stream's counter is the global
     simulation index, so the chunking does not change the result)."""
-    d = _check_inputs(pmat, scal, grid_log, race_laps, n_sims, sim_offset, MAX_DRIVERS)
+    d = _check_inputs(pmat, scal, grid_log, race_laps, n_sims, sim_offset)
     counts = torch.zeros(d * d, dtype=torch.int64, device=pmat.device)
     if bits is not None:
         chunk = n_sims
@@ -486,7 +463,7 @@ def race_counts_plain(
     return counts.view(d, d)
 
 
-def _check_season_inputs(pmat_s, scal_s, grid_log_s, race_laps, n_sims, seeds, max_d):
+def _check_season_inputs(pmat_s, scal_s, grid_log_s, race_laps, n_sims, seeds):
     """(R, D, race_laps as ints, seeds as ints) after the single-race checks
     on every race of the season."""
     if pmat_s.dim() != 3 or scal_s.dim() != 2 or grid_log_s.dim() != 3:
@@ -508,7 +485,7 @@ def _check_season_inputs(pmat_s, scal_s, grid_log_s, race_laps, n_sims, seeds, m
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     for r in range(n_races):
-        d = _check_inputs(pmat_s[r], scal_s[r], grid_log_s[r], laps[r], n_sims, 0, max_d)
+        d = _check_inputs(pmat_s[r], scal_s[r], grid_log_s[r], laps[r], n_sims, 0)
         philox.seed_key(seeds[r])
     return n_races, d, laps, seeds
 
@@ -528,7 +505,7 @@ def season_counts_plain(
     0..n_sims_per_race-1 of the stream of `seeds[r]` (or of `bits`, the same
     bit source for every race)."""
     n_races, _, laps, seeds = _check_season_inputs(
-        pmat_s, scal_s, grid_log_s, race_laps, n_sims_per_race, seeds, MAX_DRIVERS
+        pmat_s, scal_s, grid_log_s, race_laps, n_sims_per_race, seeds
     )
     return torch.stack([
         race_counts_plain(
@@ -579,6 +556,9 @@ def build():
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
+        fn = lib.mcgp_blocks_per_sm
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        fn.restype = ctypes.c_int
         _lib = lib
     return path
 
@@ -591,31 +571,33 @@ def race_counts(
     n_sims: int,
     seed: int = 0,
     sim_offset: int = 0,
-    warps_per_block: int = DEFAULT_WARPS_PER_BLOCK,
+    warps_per_block: int | None = None,
+    n_blocks: int | None = None,
 ) -> torch.Tensor:
     """(D, D) [driver, position] finish counts of simulations
     [sim_offset, sim_offset + n_sims) of the Philox stream of `seed`.
 
     CPU tensors run `race_counts_plain` (int64 counts). CUDA tensors launch
-    the CUDA kernel on the current stream (int32 counts; D <= 32); a launch
-    error raises. The counts do not depend on `warps_per_block`."""
+    the CUDA kernel on the current stream (int32 counts); a launch error
+    raises. The counts do not depend on `warps_per_block` or `n_blocks`
+    (default: the block shape and grid of `launch_shape`)."""
     if pmat.device.type == "cpu":
         return race_counts_plain(pmat, scal, grid_log, race_laps, n_sims, seed, sim_offset)
     if pmat.device.type != "cuda":
         raise ValueError(f"race_counts runs on cpu or cuda tensors, not {pmat.device}")
-    d = _check_inputs(
-        pmat, scal, grid_log, race_laps, n_sims, sim_offset, MAX_CUDA_DRIVERS
-    )
-    if not 1 <= warps_per_block <= 32:
-        raise ValueError(f"warps_per_block must be in 1..32, got {warps_per_block}")
+    d = _check_inputs(pmat, scal, grid_log, race_laps, n_sims, sim_offset)
+    _check_warps(warps_per_block)
     key0, key1 = philox.seed_key(seed)
     counts = torch.zeros((d, d), dtype=torch.int32, device=pmat.device)
     if n_sims == 0:
         return counts
-    if _lib is None:
-        build()
     with torch.cuda.device(pmat.device):
-        n_blocks = min(-(-n_sims // warps_per_block), _grid_blocks(pmat.device, warps_per_block))
+        warps_per_block, full_grid = launch_shape(pmat.device, d, warps_per_block)
+        if n_blocks is None:
+            n_blocks = full_grid
+        n_blocks = min(-(-n_sims // warps_per_block), n_blocks)
+        if not 1 <= n_blocks <= 2**31 - 1:
+            raise ValueError(f"n_blocks must be >= 1, got {n_blocks}")
         err = _lib.mcgp_race_counts(
             pmat.data_ptr(), scal.data_ptr(), grid_log.data_ptr(), counts.data_ptr(),
             d, int(race_laps), key0, key1, sim_offset, n_sims,
@@ -630,11 +612,55 @@ def race_counts(
 race_counts.launches = 0
 
 
-def _grid_blocks(device, warps_per_block: int) -> int:
-    """Blocks of a full launch: 64 warps per SM's worth, so every SM holds
-    as many blocks as fit at once and the rest queue behind them."""
-    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-    return n_sm * max(1, 64 // warps_per_block)
+def _check_warps(warps_per_block: int | None) -> None:
+    if warps_per_block is not None and not 1 <= warps_per_block <= 32:
+        raise ValueError(f"warps_per_block must be in 1..32, got {warps_per_block}")
+
+
+# A full launch is this many waves of the blocks that fit on every SM at once.
+GRID_WAVES = 4
+# The block shapes the default picks from, in order of preference.
+BLOCK_SHAPES = (8, 4)
+
+
+@functools.lru_cache(maxsize=None)
+def blocks_per_sm(device_index: int, d: int, warps_per_block: int, season: bool) -> int:
+    """How many blocks of `warps_per_block` warps of K1 (or K2, `season`)
+    fit on one SM of the device at once for a field of d drivers: the CUDA
+    occupancy calculator on the kernel's registers and shared memory."""
+    if _lib is None:
+        build()
+    with torch.cuda.device(device_index):
+        n = _lib.mcgp_blocks_per_sm(d, warps_per_block, int(season))
+    if n < 0:
+        raise RuntimeError(f"the occupancy query of the race kernel failed at {d} drivers")
+    return n
+
+
+def launch_shape(
+    device, d: int, warps_per_block: int | None = None, season: bool = False
+) -> tuple[int, int]:
+    """(warps per block, blocks of a full launch) for a field of d drivers.
+
+    The default block shape is the one of BLOCK_SHAPES that keeps the most
+    warps on an SM at once: registers and the (d, d) shared histogram set
+    that number per field width (ceil(d / 32) cars per lane). A full launch
+    is GRID_WAVES whole waves of resident blocks, so no partial wave idles
+    SMs at the end (the warps walk the simulations with a grid stride, so
+    the grid only sets the balance, never the counts)."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    if warps_per_block is None:
+        warps_per_block = max(
+            BLOCK_SHAPES, key=lambda w: w * blocks_per_sm(index, d, w, season)
+        )
+    per_sm = blocks_per_sm(index, d, warps_per_block, season)
+    if per_sm < 1:
+        raise ValueError(
+            f"a block of {warps_per_block} warps does not fit on an SM at {d} drivers"
+        )
+    n_sm = torch.cuda.get_device_properties(index).multi_processor_count
+    return warps_per_block, GRID_WAVES * n_sm * per_sm
 
 
 def season_counts(
@@ -644,7 +670,7 @@ def season_counts(
     race_laps,
     n_sims_per_race: int,
     seeds,
-    warps_per_block: int = DEFAULT_WARPS_PER_BLOCK,
+    warps_per_block: int | None = None,
     blocks_per_race: int | None = None,
 ) -> torch.Tensor:
     """(R, D, D) [race, driver, position] finish counts of a season: race r
@@ -655,11 +681,11 @@ def season_counts(
 
     CPU tensors run `season_counts_plain` (int64 counts). CUDA tensors run
     the whole season as one launch of the season kernel on the current
-    stream (int32 counts; D <= 32); a launch error raises. The counts do not
-    depend on `warps_per_block` or `blocks_per_race` (default: each race
-    gets the single-race launch's grid, so a season holds many more blocks
-    than the SMs take at once, and the blocks of short races free their
-    SMs for queued ones instead of leaving a ragged tail)."""
+    stream (int32 counts); a launch error raises. The counts do not
+    depend on `warps_per_block` or `blocks_per_race` (default: the block
+    shape and grid of `launch_shape` for each race, so a season holds many
+    more blocks than the SMs take at once, and the blocks of short races
+    free their SMs for queued ones instead of leaving a ragged tail)."""
     if pmat_s.device.type == "cpu":
         return season_counts_plain(
             pmat_s, scal_s, grid_log_s, race_laps, n_sims_per_race, seeds
@@ -667,10 +693,9 @@ def season_counts(
     if pmat_s.device.type != "cuda":
         raise ValueError(f"season_counts runs on cpu or cuda tensors, not {pmat_s.device}")
     n_races, d, laps, seeds = _check_season_inputs(
-        pmat_s, scal_s, grid_log_s, race_laps, n_sims_per_race, seeds, MAX_CUDA_DRIVERS
+        pmat_s, scal_s, grid_log_s, race_laps, n_sims_per_race, seeds
     )
-    if not 1 <= warps_per_block <= 32:
-        raise ValueError(f"warps_per_block must be in 1..32, got {warps_per_block}")
+    _check_warps(warps_per_block)
     if n_races > 65535:
         raise ValueError(f"a season launch takes at most 65535 races, got {n_races}")
     dev = pmat_s.device
@@ -681,11 +706,10 @@ def season_counts(
     key_words = [w - 2**32 if w >= 2**31 else w for s in seeds for w in philox.seed_key(s)]
     keys = torch.tensor(key_words, dtype=torch.int32, device=dev)
     laps_t = torch.tensor(laps, dtype=torch.int32, device=dev)
-    if _lib is None:
-        build()
     with torch.cuda.device(dev):
+        warps_per_block, full_grid = launch_shape(dev, d, warps_per_block, season=True)
         if blocks_per_race is None:
-            blocks_per_race = _grid_blocks(dev, warps_per_block)
+            blocks_per_race = full_grid
         blocks_per_race = min(blocks_per_race, -(-n_sims_per_race // warps_per_block))
         if not 1 <= blocks_per_race <= 2**31 - 1:
             raise ValueError(f"blocks_per_race must be >= 1, got {blocks_per_race}")

@@ -24,6 +24,13 @@ And on the synthetic 2024 season (20 races, 44 to 78 laps):
     for several blocks per race, taken in turns with the 20 single-race
     launches of the same races, with a check that the counts do not change.
 
+And on wide fields (20, 40, 80 and 128 drivers: one to four cars per lane):
+
+  * the race kernel's time for blocks of 8 and 4 warps, each with the grid
+    of 64 warps per SM and with 1, 2 and 4 whole waves of the blocks that
+    fit on every SM at once (the occupancy calculator's count), and the
+    default launch shape, with a check that the counts do not change.
+
 Every line it prints carries the card's name and power limit; the last is
 the whole report as one JSON object. It needs a CUDA device and exits
 non-zero without one.
@@ -48,11 +55,16 @@ SWEEP_SIMS = (65_536, 262_144, 1_048_576, 4_194_304)
 # 32 warps per block would need more registers than an SM holds
 SWEEP_WARPS = (2, 4, 8, 16)
 # the season: the backtest's simulations per race and a larger count; the
-# blocks per race of the launches compared (53 shares out one single-race
-# grid of 1,056 blocks over 20 races; 1,056 is the single-race grid itself)
+# blocks per race of the launches compared (53 shares out a grid of 1,056
+# blocks over 20 races; 1,056 was the single-race grid before it was sized
+# in whole waves of resident blocks, ops/race_kernel.launch_shape)
 BACKTEST_SIMS, SEASON_SWEEP_SIMS = 10_000, (10_000, 262_144)
 SEASON_BLOCKS = (53, 264, 1056)
 SEASON_SEED = 42 * 1_000_003 + SEASON
+# wide fields: (drivers, simulations) at 57 laps, the block shapes and the
+# whole waves of resident blocks compared
+WIDE_SHAPES = ((20, 1_048_576), (40, 262_144), (80, 262_144), (128, 262_144))
+WIDE_WARPS, WIDE_WAVES, WIDE_LAPS = (8, 4), (1, 2, 4), 57
 
 
 def card() -> str:
@@ -203,6 +215,58 @@ def season_shapes(dev, plans, where: str) -> list[dict]:
     return rows
 
 
+def wide_field(d: int, dev):
+    """The field of tests/test_torch_race_kernel_gpu.py at d drivers."""
+    import numpy as np
+
+    from monte_carlo_gp_torch.config import make_sim_params
+
+    rng = np.random.default_rng(d)
+    gp = np.exp(-((np.arange(d)[None, :] - np.arange(d)[:, None]) ** 2) / 8.0)
+    return make_sim_params(
+        grid_probs=(gp / gp.sum(1, keepdims=True)).astype(np.float32),
+        base_pace=90.0 + 0.06 * np.arange(d),
+        tire_deg=np.clip(0.05 + 0.015 * rng.standard_normal(d), 0.01, 0.15),
+        variance=np.full(d, 0.15), dnf_rate=np.full(d, 0.0008),
+        team_dnf_rate=np.full(d, 0.002), pit_loss=21.0, overtake_delta=0.6, device=dev,
+    )
+
+
+def wide_shapes(dev, where: str) -> list[dict]:
+    """K1 at each width of WIDE_SHAPES over block shapes and grids."""
+    from monte_carlo_gp_torch.ops import race_kernel as rk
+
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = []
+    for d, n in WIDE_SHAPES:
+        pmat, scal, grid_log = rk.pack_inputs(wide_field(d, dev))
+
+        def run(warps=None, blocks=None):
+            return rk.race_counts(pmat, scal, grid_log, WIDE_LAPS, n, seed=0,
+                                  warps_per_block=warps, n_blocks=blocks)
+
+        want = run()
+        default = rk.launch_shape(dev, d)
+        shapes = [("default", *default)]
+        for warps in WIDE_WARPS:
+            per_sm = rk.blocks_per_sm(dev.index or 0, d, warps, False)
+            shapes.append(("64 warps per SM", warps, n_sm * (64 // warps)))
+            shapes += [(f"{w} whole waves", warps, w * n_sm * per_sm) for w in WIDE_WAVES]
+        for label, warps, blocks in shapes:
+            per_sm = rk.blocks_per_sm(dev.index or 0, d, warps, False)
+            ms = event_ms(lambda: run(warps, blocks))
+            same = torch.equal(run(warps, blocks), want)
+            rows.append({"drivers": d, "sims": n, "grid": label, "warps_per_block": warps,
+                         "blocks": blocks, "blocks_per_sm": per_sm, "ms": ms,
+                         "counts_equal": same})
+            print(f"[wide shape] D={d}, {WIDE_LAPS} laps, {n} sims, {label}: {warps} warps x "
+                  f"{blocks} blocks ({per_sm} per SM, {per_sm * warps} warps): {ms:.3f} ms, "
+                  f"counts equal: {same} ({where})", flush=True)
+    if not all(r["counts_equal"] for r in rows):
+        raise AssertionError("kernel counts depend on the launch shape")
+    return rows
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("profile_kernel: needs a CUDA device (torch.cuda.is_available() is False)")
@@ -223,7 +287,7 @@ def main() -> None:
     pmat, scal, grid_log = rk.pack_inputs(plan.params.to(dev))
     laps = plan.total_laps
 
-    def run(n: int, warps: int = rk.DEFAULT_WARPS_PER_BLOCK):
+    def run(n: int, warps: int | None = None):
         return rk.race_counts(pmat, scal, grid_log, laps, n, seed=0, warps_per_block=warps)
 
     scaling = []
@@ -252,9 +316,10 @@ def main() -> None:
           f"ms device time; device busy {season['busy_share']:.5f} of the backtest ({where})",
           flush=True)
     season_rows = season_shapes(dev, plans, where)
+    wide_rows = wide_shapes(dev, where)
 
     report = {"card": where, "weekend": weekend, "scaling": scaling, "launch_shape": shapes,
-              "season_backtest": season, "season_shape": season_rows}
+              "season_backtest": season, "season_shape": season_rows, "wide_shape": wide_rows}
     print(json.dumps(report), flush=True)
 
 

@@ -26,12 +26,14 @@ and then runs every race in ONE launch of the season kernel
 
 from __future__ import annotations
 
+import dataclasses
 import json
 from pathlib import Path
 
 import pandas as pd
 
 from monte_carlo_gp_torch import config as cfg
+from monte_carlo_gp_torch.ops import philox
 from monte_carlo_gp_torch.ops.race_kernel import MAX_DRIVERS, run_monte_carlo_season
 from monte_carlo_gp_torch.utils.logging import log_event
 from monte_carlo_gp_torch.validate.metrics import (
@@ -383,29 +385,32 @@ def simulate_season_plans(
     n_simulations: int,
     params_list: list | None = None,
 ) -> list:
-    """Simulate a season's prepared plans in one launch on the predictor's
-    device -> list of (D, D) finish-probability arrays (one per plan, D the
-    widest field of the season).
+    """Simulate a season's prepared plans on the predictor's device -> list
+    of finish-probability arrays, one per plan.
 
     Race r is seeded with `philox.fold_in(season_seed, r)`, so a race's
     result does not depend on the other plans in the batch. `params_list`
     optionally overrides each plan's SimParams (same order and length as
     `plans`) — the parameter sweep's hook.
 
-    Fields of 33..128 drivers raise on CUDA (ROADMAP B-1b); fields over
-    128 drivers raise on any device, since the engine that serves them in
-    the JAX package is not yet ported (ROADMAP A-5).
+    A season whose widest field has at most MAX_DRIVERS (128) drivers runs
+    as one launch of the season kernel, and every array is (D, D), D that
+    widest field. A wider season runs race by race through
+    `predictor.simulate_plan` at race r's seed, so each race takes the race
+    kernel or, above 128 drivers, the lap engine, and its array is its own
+    field's (d, d): the JAX package's route for such seasons
+    (validate/backtest.py:457-471), with the same seed chain.
     """
     if params_list is None:
         params_list = [p.params for p in plans]
-    d_max = max(p.n_drivers for p in params_list)
-    if d_max > MAX_DRIVERS:
-        raise NotImplementedError(
-            f"a {d_max}-driver field: fields over {MAX_DRIVERS} drivers run on "
-            "the portable engine, which is not yet ported to "
-            "monte_carlo_gp_torch (ROADMAP A-5)"
-        )
     n = int(n_simulations)
+    if max(p.n_drivers for p in params_list) > MAX_DRIVERS:
+        return [
+            predictor.simulate_plan(
+                dataclasses.replace(plan, params=prm), n, seed=philox.fold_in(season_seed, r)
+            )
+            for r, (plan, prm) in enumerate(zip(plans, params_list))
+        ]
     probs = run_monte_carlo_season(
         [p.to(predictor.device) for p in params_list],
         [p.total_laps for p in plans],

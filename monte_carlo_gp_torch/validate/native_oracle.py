@@ -24,6 +24,13 @@ _BUILD_DIR = _ROOT / "build" / "native"
 _GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 _lib = None
 
+# Rule mutations of the oracle (native/oracle.cpp, enum Mutation): each drops
+# one rule on purpose, so a test can show that its tolerance catches a rule
+# fault.
+MUT_NONE = 0
+MUT_NO_FRONT_ROW_START_CLAMP = 1
+MUT_NO_TWO_COMPOUND_RULE = 2
+
 
 def _load():
     global _lib
@@ -62,10 +69,13 @@ def _load():
 
 
 def run_native_oracle(
-    params: SimParams, seed: int, n_sims: int, total_laps: int
+    params: SimParams, seed: int, n_sims: int, total_laps: int,
+    mutation: int = MUT_NONE,
 ) -> np.ndarray:
     """(D, D) float64 [driver, position] finish probabilities of `n_sims`
-    races from the native oracle (its own RNG stream, seeded by `seed`)."""
+    races from the native oracle (its own RNG stream, seeded by `seed`).
+    `mutation` (a MUT_* value) drops one rule on purpose; only the
+    mutation-sensitivity checks pass anything but MUT_NONE."""
     lib = _load()
     d = params.n_drivers
     counts = np.zeros((d, d), np.int64)
@@ -83,7 +93,7 @@ def run_native_oracle(
         np.int32(int(params.track_condition.item())),
         f32(params.compound_pace), f32(params.compound_deg),
         np.ascontiguousarray(params.compound_optimal.cpu().numpy(), np.int32),
-        np.int32(0),  # no rule mutation
+        np.int32(mutation),
         counts,
     )
     return counts.astype(np.float64) / n_sims

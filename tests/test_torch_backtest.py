@@ -19,6 +19,8 @@ import numpy as np
 import pytest
 import torch
 
+from monte_carlo_gp_torch.ops import philox
+from monte_carlo_gp_torch.ops.engine import run_monte_carlo
 from monte_carlo_gp_torch.validate import backtest as tbt
 from monte_carlo_gp_torch.validate import metrics as tmetrics
 from monte_carlo_gp_tpu.validate import backtest as jbt
@@ -301,8 +303,9 @@ def test_reference_compat_elo_noop_differs(batched_run, tmp_path):
 
 
 def test_oversize_fields_raise_not_yet_ported(prepared):
-    """Fields over 128 drivers have no engine in the port yet: the batched
-    path raises rather than dropping anywhere else."""
+    """Fields over 128 drivers no longer raise: a season with one runs race
+    by race, the wide race on the lap engine (ops/engine.py), each at its
+    `fold_in` seed, the others on the race kernel."""
     _, _, _, tpred, tplans, _ = prepared
     d = 130
     wide = dataclasses.replace(
@@ -312,8 +315,13 @@ def test_oversize_fields_raise_not_yet_ported(prepared):
                                        "dnf_rate", "team_dnf_rate")},
         active=torch.ones(d, dtype=torch.bool),
     )
-    with pytest.raises(NotImplementedError, match="A-5"):
-        tbt.simulate_season_plans(tpred, tplans[:1], 0, 64, params_list=[wide])
+    probs = tbt.simulate_season_plans(tpred, tplans[:2], 0, 64,
+                                      params_list=[wide, tplans[1].params])
+    d1 = tplans[1].params.n_drivers
+    assert [p.shape for p in probs] == [(d, d), (d1, d1)]
+    np.testing.assert_allclose(probs[0].sum(axis=1), 1.0, atol=1e-6)
+    want = run_monte_carlo(wide, philox.fold_in(0, 0), 64, tplans[0].total_laps)
+    np.testing.assert_array_equal(probs[0], want.numpy())
 
 
 # -- the CLI ------------------------------------------------------------------------------

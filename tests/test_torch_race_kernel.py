@@ -119,6 +119,25 @@ def test_zero_bits_counts_equal_pallas_body_d20_with_padding_slots():
     assert not np.array_equal(np.argmax(got, axis=1), np.arange(d))
 
 
+@pytest.mark.parametrize(
+    "d",
+    [40, pytest.param(80, marks=pytest.mark.slow)],  # D = 80: ~65 s of interpreter on a CPU
+)
+def test_zero_bits_counts_equal_pallas_body_wide_tiers(d):
+    """The rank-key tiers of wider fields, (Q, M) = (3, 64) at D = 40 and
+    (4, 128) at D = 80: two padding slots, a shorter race than the Pallas
+    compile bucket, and overtakes reshuffling the order, as at D = 20."""
+    total_laps, race_laps = ZERO_BITS_SHAPE_D20[1:]
+    active = np.ones(d, bool)
+    active[[7, d - 5]] = False
+    fields = zero_bits_fields(d, active=active, vsc_prob=0.2)
+    want = _pallas_zero_bits_counts(fields, total_laps, race_laps)
+    got = _plain_zero_bits_counts(fields, race_laps)
+    np.testing.assert_array_equal(got, want)
+    assert set(np.argmax(got, axis=1)[[7, d - 5]]) == {d - 2, d - 1}
+    assert not np.array_equal(np.argmax(got, axis=1), np.arange(d))
+
+
 def stress_fields(d=20):
     rng = np.random.default_rng(3)
     return dict(

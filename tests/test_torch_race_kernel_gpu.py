@@ -57,6 +57,12 @@ CASES = {
     )),
     "d20_padding_slots": (20, 25, 4_096, dict(active=np.arange(20) < 17)),
     "ragged_tail_one_lap": (20, 1, 1_001, {}),
+    # the wider rank-key tiers: 2, 3 and 4 cars per lane
+    "d40_two_cars_per_lane": (40, 30, 8_192, {}),
+    "d80_three_cars_per_lane": (80, 20, 4_096, dict(active=np.arange(80) < 77)),
+    "d128_four_cars_per_lane": (128, 12, 2_048, dict(
+        track_condition="wet", sc_prob=0.08, vsc_prob=0.10, red_flag_prob=0.01,
+    )),
 }
 
 
@@ -104,10 +110,21 @@ def test_main_path_launches_the_kernel(cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", [20, 80])
+def test_kernel_ignores_launch_shape_wide(d, cuda_device):
+    """8, 4 and 3 warps per block, and any grid, give the same counts."""
+    pmat, scal, grid_log = rk.pack_inputs(make_sim_params(**field(d), device=cuda_device))
+    runs = [rk.race_counts(pmat, scal, grid_log, 15, 3000, seed=2, warps_per_block=w)
+            for w in (8, 4, 3)]
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    assert torch.equal(runs[0], rk.race_counts(pmat, scal, grid_log, 15, 3000, seed=2))
+
+
+@pytest.mark.gpu
 def test_kernel_rejects_wide_fields(cuda_device):
-    kw = field(33)
+    kw = field(129)
     pmat, scal, grid_log = rk.pack_inputs(make_sim_params(**kw, device=cuda_device))
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="1..128"):
         rk.race_counts(pmat, scal, grid_log, 10, 64)
 
 
@@ -173,6 +190,25 @@ def test_season_kernel_ignores_launch_shape(cuda_device):
 
 @pytest.mark.gpu
 def test_season_kernel_rejects_wide_fields(cuda_device):
-    pmat_s, scal_s, grid_log_s, seeds = season_inputs(cuda_device, widths=(20, 33))
-    with pytest.raises(ValueError, match="B-1b"):
+    pmat_s, scal_s, grid_log_s, seeds = season_inputs(cuda_device, widths=(20, 129))
+    with pytest.raises(ValueError, match="1..128"):
         rk.season_counts(pmat_s, scal_s, grid_log_s, [10, 10], 64, seeds)
+
+
+@pytest.mark.gpu
+def test_wide_season_matches_plain_and_single_races(cuda_device):
+    """Fields of 80, 64, 40 and 20 drivers padded to 80 (three cars per
+    lane): K2 against its plain version, race r bitwise equal to K1 at
+    race r's seed, and two launch shapes bitwise equal."""
+    widths, laps, n = (80, 64, 40, 20), [20, 15, 25, 12], 2_048
+    pmat_s, scal_s, grid_log_s, seeds = season_inputs(cuda_device, widths=widths)
+    kernel = rk.season_counts(pmat_s, scal_s, grid_log_s, laps, n, seeds)
+    plain = rk.season_counts_plain(pmat_s, scal_s, grid_log_s, laps, n, seeds)
+    assert (kernel.long() - plain).abs().max().item() <= max(MAX_ABS_COUNT_ERR, MAX_ABS_PROB_ERR * n)
+    for r, w in enumerate(widths):
+        assert bool((kernel[r, :w, :w].sum(1) == n).all()), r
+        single = rk.race_counts(pmat_s[r], scal_s[r], grid_log_s[r], laps[r], n, seed=seeds[r])
+        assert torch.equal(kernel[r], single), r
+    shaped = rk.season_counts(pmat_s, scal_s, grid_log_s, laps, n, seeds,
+                              warps_per_block=3, blocks_per_race=11)
+    assert torch.equal(kernel, shaped)

@@ -22,7 +22,14 @@ their CLI entry points and checks that each went through its kernel:
     `F1Predictor.simulate_plan` (K1 up to 128 drivers, the lap engine
     above); the lap engine on the card against K1 and the native oracle;
     and the two-compound rule mutation of the oracle, which K1's tolerance
-    must catch.
+    must catch;
+  * the sharded launch on the one card: K1 at the main shape split over 1,
+    2, 3 and 4 shards and K2 on the 2024 season over 2 and 4, each bitwise
+    equal to one launch, and the weekend and season paths on a mesh of 4
+    shards (`simulate_plan`, `simulate_season_plans`); a one-rank NCCL
+    group through `initialize_distributed`; two processes on the card
+    joined by gloo through `parallel/dryrun.py` at the main shape; and the
+    weekend and batched backtest CLIs with `--engine xla` on the lap engine.
 
 Every phase that fails raises and the script exits non-zero, and each
 prints its seconds. The last line
@@ -30,8 +37,9 @@ of standard output is one JSON object, {"ok": true, "device": {...}}; the
 line before it is the card's name and power limit, and the one before that
 lists the kernels, with their launches on their path, their error against
 the plain version, their times and their bounds (with a `wide` list of
-the same readings at each wide field). Without a CUDA device it exits
-non-zero and prints no result.
+the same readings at each wide field, and the sharded entry's readings at
+each shard count). Without a CUDA device it exits non-zero and prints no
+result.
 """
 
 from __future__ import annotations
@@ -39,7 +47,9 @@ from __future__ import annotations
 import importlib.util
 import json
 import math
+import os
 import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -78,6 +88,8 @@ SWEEP_ARGS = ["--synthetic", "--seasons", "2024", "--simulations", SEASON_SIMS,
 SWEEP_CONFIGS = 4
 # K2 against its plain version, and the season's timing shape
 SEASON_CHECK_SIMS, SEASON_TIME_SIMS = 65_536, 262_144
+# the sharded K2 on the season's timing shape, split over shards on one card
+SEASON_SHARDS = (2, 4)
 # the sequential backtest's win Brier differs from the batched one's only
 # by Monte Carlo noise (other seeds)
 WIN_BRIER_ATOL = 0.01
@@ -103,6 +115,11 @@ ENGINE_ORACLE_D, ENGINE_ORACLE_SIMS, ENGINE_ORACLE_TV = 150, 20_000, 0.03
 # the blown one
 MUTATION_LAPS, MUTATION_KERNEL_SIMS, MUTATION_ORACLE_SIMS = 24, 1_048_576, 200_000
 MUTATION_TIGHT_TV, MUTATION_BLOWN_TV = 0.012, 0.05
+# the sharded launch: K1 at the main shape over 1-4 shards on the card; two
+# processes on the card (gloo); the CLIs with --engine xla at fewer sims
+MAIN_SHARDS = (1, 2, 3, 4)
+TWO_PROCESS_TIMEOUT_S = 300
+XLA_WEEKEND_SIMS, XLA_SEASON_SIMS = 262_144, 2_048
 
 # The roofline bound: the larger of the bytes each kernel must move over
 # the card's memory rate and its float32 operations over the card's float32
@@ -255,18 +272,29 @@ def time_kernel_ms(fn, repeats: int = 3) -> float:
 
 def run_counted(rk, fn):
     """(fn's result, wall seconds, K1 launches, K2 launches) of one run
-    driven with both launch counts set to 0 just before it."""
+    driven with every launch count set to 0 just before it (the sharded
+    entries' counts are read from `rk` after it)."""
     rk.race_counts.launches = rk.season_counts.launches = 0
+    rk.race_counts_sharded.launches = rk.season_counts_sharded.launches = 0
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0, rk.race_counts.launches, rk.season_counts.launches
 
 
-def season_phases(dev) -> tuple[list[int], dict]:
+def shard_mesh(dev, n_shards: int):
+    """A mesh of `n_shards` shards, all on `dev`: one card holds the split."""
+    from monte_carlo_gp_torch.parallel.mesh import make_mesh
+
+    return make_mesh(devices=[dev] * n_shards)
+
+
+def season_phases(dev) -> tuple[list[int], dict, dict, dict]:
     """K2 against its plain version and against K1, then the season paths
-    through their CLI entry points, then the timings at the season's shape.
-    Returns the season's lap counts and K2's entry of the kernels line."""
+    through their CLI entry points, then the timings at the season's shape,
+    then the sharded K2 at 2 and 4 shards on the card. Returns the season's
+    lap counts, K2's entry of the kernels line, the sharded K2's readings
+    and the batched 2024 backtest's result."""
     from monte_carlo_gp_torch import backtest as backtest_cli
     from monte_carlo_gp_torch import tune as tune_cli
     from monte_carlo_gp_torch.data.synthetic import SyntheticBackend
@@ -398,6 +426,32 @@ def season_phases(dev) -> tuple[list[int], dict]:
         f"(bound {MAX_ABS_PROB_ERR}); roofline bound {bound_ms:.3f} ms ({bound_by})")
     if not err <= MAX_ABS_PROB_ERR:
         raise AssertionError("the season kernel disagrees with its plain version at its shape")
+
+    # ---- the sharded season: K2 once per shard, each shard 1/W of every race --
+    t0 = time.perf_counter()
+    sharded = {"sims_per_race": n, "shards": []}
+    for w in SEASON_SHARDS:
+        mesh = shard_mesh(dev, w)
+        run = lambda: rk.season_counts_sharded(pmat_s, scal_s, grid_log_s, laps, n, seeds, mesh=mesh)
+        same = torch.equal(run(), kernel)
+        ms = time_kernel_ms(run)
+        sharded["shards"].append({"shards": w, "ms": ms, "equal": same})
+        log(f"[sharded season] 20 races x {n} sims over {w} shards on {dev}: bitwise equal to "
+            f"one K2 launch: {same}; {ms:.3f} ms (one launch {season_ms:.3f} ms)")
+        if not same:
+            raise AssertionError(f"the season split over {w} shards departs from one launch")
+    mesh = shard_mesh(dev, SEASON_SHARDS[-1])
+    single = bt.simulate_season_plans(predictor, plans, season_seed, int(SEASON_SIMS))
+    split, wall, k1, k2 = run_counted(rk, lambda: bt.simulate_season_plans(
+        predictor, plans, season_seed, int(SEASON_SIMS), mesh=mesh))
+    launches = rk.season_counts_sharded.launches
+    same = all(np.array_equal(a, b) for a, b in zip(single, split))
+    log(f"[sharded season path] simulate_season_plans on {mesh.size} shards, {SEASON_SIMS} sims per "
+        f"race: sharded K2 launches {launches}, K2 launches {k2}, K1 launches {k1}; equal to the "
+        f"single launch's result: {same}; wall {wall:.3f} s; phase {time.perf_counter() - t0:.1f} s")
+    if (launches, k2, k1) != (1, mesh.size, 0) or not same:
+        raise AssertionError("the sharded season path did not take one K2 launch per shard")
+    sharded["launches"] = launches
     return laps, {
         "name": "season_counts",
         "route": "cuda",
@@ -410,7 +464,7 @@ def season_phases(dev) -> tuple[list[int], dict]:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }
+    }, sharded, one
 
 
 def wide_kernel_phases(dev) -> list[dict]:
@@ -641,6 +695,193 @@ def mutation_phase(dev) -> None:
         raise AssertionError("the tolerance does not tell the real rules from the mutated ones")
 
 
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def sharded_kernel_phase(dev, predictor, plan, main_counts, plain_counts, plain_ms) -> dict:
+    """K1 split over 1, 2, 3 and 4 shards on the card at the main shape,
+    each bitwise equal to one launch and timed beside one shard's launch;
+    then the weekend through `simulate_plan` on a mesh of 4 shards. Returns
+    the sharded entry of the kernels line."""
+    from monte_carlo_gp_torch.ops import race_kernel as rk
+    from monte_carlo_gp_torch.parallel.mesh import shard_range
+
+    t0 = time.perf_counter()
+    laps, d = plan.total_laps, plan.params.n_drivers
+    pmat, scal, grid_log = rk.pack_inputs(plan.params.to(dev))
+    rows = []
+    for w in MAIN_SHARDS:
+        mesh = shard_mesh(dev, w)
+        run = lambda: rk.race_counts_sharded(pmat, scal, grid_log, laps, MAIN_SIMS, seed=0, mesh=mesh)
+        counts = run()
+        same = torch.equal(counts, main_counts)
+        ms = time_kernel_ms(run)
+        lo, hi = shard_range(MAIN_SIMS, w, 0)
+        shard_ms = time_kernel_ms(
+            lambda: rk.race_counts(pmat, scal, grid_log, laps, hi - lo, seed=0, sim_offset=lo))
+        rows.append({"shards": w, "ms": ms, "shard_ms": shard_ms, "equal": same})
+        log(f"[sharded kernel] D={d}, {laps} laps, {MAIN_SIMS} sims over {w} shard(s) on {dev}: "
+            f"bitwise equal to one launch: {same}; {ms:.3f} ms, one shard's launch of {hi - lo} "
+            f"sims {shard_ms:.3f} ms")
+        if not same:
+            raise AssertionError(f"K1 split over {w} shards departs from one launch")
+    err = max_prob_err(counts, plain_counts, MAIN_SIMS)
+
+    mesh = shard_mesh(dev, MAIN_SHARDS[-1])
+    probs, wall, k1, k2 = run_counted(
+        rk, lambda: predictor.simulate_plan(plan, MAIN_SIMS, seed=0, mesh=mesh))
+    launches = rk.race_counts_sharded.launches
+    same = np.array_equal(probs, (main_counts.float() / MAIN_SIMS).cpu().numpy())
+    log(f"[sharded weekend path] simulate_plan on {mesh.size} shards: sharded K1 launches "
+        f"{launches}, K1 launches {k1}, K2 {k2}; equal to the single launch's result: {same}; "
+        f"wall {wall:.3f} s; phase {time.perf_counter() - t0:.1f} s")
+    if (launches, k1, k2) != (1, mesh.size, 0) or not same:
+        raise AssertionError("the sharded weekend did not take one K1 launch per shard")
+    # K1's work and inputs, and one all-reduce of the (D, D) int32 counts
+    bound_ms, bound_by = bound(race_flops(d, laps, MAIN_SIMS), race_bytes(d) + d * d * 4)
+    log(f"[sharded kernel] roofline bound {bound_ms:.3f} ms ({bound_by})")
+    return {
+        "name": "race_counts_sharded",
+        "route": "cuda",
+        "source": "monte_carlo_gp_torch/csrc/race_kernel.cu",
+        "replaces": "monte_carlo_gp_tpu/ops/pallas_engine.py:1114",
+        "also_replaces": "monte_carlo_gp_tpu/ops/pallas_engine.py:962-983",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": rows[-1]["ms"],
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "shards": rows,
+    }
+
+
+def nccl_phase(dev, plan, main_counts) -> dict:
+    """A one-rank NCCL group through `initialize_distributed`: its
+    all-reduce passes the counts through, and the weekend's split path
+    under the group gives the single launch's counts."""
+    from monte_carlo_gp_torch.ops import race_kernel as rk
+    from monte_carlo_gp_torch.parallel import distributed
+
+    t0 = time.perf_counter()
+    pmat, scal, grid_log = rk.pack_inputs(plan.params.to(dev))
+    if not distributed.initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0,
+                                              backend="nccl", device=dev):
+        raise AssertionError("initialize_distributed formed no group")
+    try:
+        counts = main_counts.clone()
+        distributed.all_reduce_counts(counts)
+        torch.cuda.synchronize()
+        through = torch.equal(counts, main_counts)
+        ms = time_kernel_ms(lambda: distributed.all_reduce_counts(counts), repeats=20)
+        d = main_counts.shape[0]
+        grouped = rk.race_counts_sharded(pmat, scal, grid_log, plan.total_laps, MAIN_SIMS,
+                                         seed=0, mesh=shard_mesh(dev, 1))
+        same = torch.equal(grouped, main_counts)
+        backend = torch.distributed.get_backend()
+    finally:
+        torch.distributed.destroy_process_group()
+    log(f"[nccl group] one rank, backend {backend}: the all-reduce passes the ({d}, {d}) int32 "
+        f"counts through: {through}, {ms:.4f} ms each; the split weekend under the group equals "
+        f"one launch: {same}; phase {time.perf_counter() - t0:.1f} s")
+    if not (through and same and backend == "nccl"):
+        raise AssertionError("the one-rank NCCL group changed the counts")
+    return {"backend": backend, "ranks": 1, "allreduce_ms": ms}
+
+
+def two_process_phase(dev, plan, main_counts) -> dict:
+    """Two processes on the card joined by gloo through
+    `parallel/dryrun.py` at the main shape: rank 0's probabilities bitwise
+    equal to one launch's; the all-reduce's time on CUDA int32 counts."""
+    t0 = time.perf_counter()
+    work = SMOKE_CACHE / "two_process"
+    work.mkdir(parents=True, exist_ok=True)
+    fields = work / "main_params.npz"
+    np.savez(fields, **{f: getattr(plan.params, f).cpu().numpy()
+                        for f in plan.params.__dataclass_fields__})
+    out = work / "probs.npy"
+    addr = f"127.0.0.1:{free_port()}"
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    procs = [
+        subprocess.Popen(
+            [sys.executable, "-m", "monte_carlo_gp_torch.parallel.dryrun", addr, "2", str(rank),
+             str(out), "pallas", dev.type, "--backend", "gloo", "--sims", str(MAIN_SIMS),
+             "--laps", str(plan.total_laps), "--seed", "0", "--params", str(fields)],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        for rank in range(2)
+    ]
+    try:
+        outputs = [proc.communicate(timeout=TWO_PROCESS_TIMEOUT_S) for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for proc, (_, err) in zip(procs, outputs):
+        if proc.returncode != 0:
+            raise AssertionError(f"a dryrun rank failed ({proc.returncode}):\n{err[-3000:]}")
+    report = json.loads(out.with_suffix(".json").read_text())
+    same = np.array_equal(np.load(out), (main_counts.float() / MAIN_SIMS).cpu().numpy())
+    log(f"[two processes] 2 ranks on the card, gloo on CUDA tensors, {MAIN_SIMS} sims: rank 0's "
+        f"probabilities bitwise equal to one launch: {same}; run {report['run_s']:.3f} s; "
+        f"all-reduce of the ({plan.params.n_drivers}, {plan.params.n_drivers}) int32 counts "
+        f"{report['allreduce_ms']:.4f} ms; phase {time.perf_counter() - t0:.1f} s")
+    if not same or report["backend"] != "gloo":
+        raise AssertionError("the two-process run departs from one launch")
+    return {"backend": "gloo", "ranks": 2, "tensors": "cuda int32", "run_s": report["run_s"],
+            "allreduce_ms": report["allreduce_ms"]}
+
+
+def xla_cli_phase(main_dist, batched_2024) -> None:
+    """The weekend and the batched 2024 backtest through their CLIs with
+    `--engine xla`: the lap engine, no race kernel launch, results within
+    Monte Carlo tolerance of the kernel's."""
+    from monte_carlo_gp_torch import backtest as backtest_cli
+    from monte_carlo_gp_torch.__main__ import run as run_cli
+    from monte_carlo_gp_torch.ops import engine
+    from monte_carlo_gp_torch.ops import race_kernel as rk
+
+    t0 = time.perf_counter()
+    engine.run_monte_carlo.calls = engine.engine_counts.calls = 0
+    args = [*MAIN_ARGS, "--engine", "xla", "--cache-dir", str(SMOKE_CACHE / "xla_weekend")]
+    args[args.index("--simulations") + 1] = str(XLA_WEEKEND_SIMS)
+    (results, timers), wall, k1, k2 = run_counted(rk, lambda: run_cli(args))
+    calls = engine.run_monte_carlo.calls
+    drivers = list(results["full_distributions"])
+    dist = np.array([[results["full_distributions"][d].get(p + 1, 0.0) for p in range(20)]
+                     for d in drivers])
+    tv = tv_max(dist, main_dist)
+    sim_s = timers.totals["simulate (Monte Carlo)"]
+    log(f"[xla weekend] --engine xla, {XLA_WEEKEND_SIMS} sims: lap-engine calls {calls}, K1 "
+        f"launches {k1}, K2 {k2}; simulate {sim_s:.3f} s ({XLA_WEEKEND_SIMS / sim_s:,.0f} sims/s); "
+        f"max per-driver TV vs K1's 1,048,576-sim weekend {tv:.4f} (bound {ENGINE_TV}); "
+        f"wall {wall:.3f} s")
+    if (calls, k1, k2) != (1, 0, 0) or not tv < ENGINE_TV:
+        raise AssertionError("the --engine xla weekend did not run on the lap engine")
+
+    engine.engine_counts.calls = 0
+    args = [*BACKTEST_ARGS, "--seasons", "2024", "--batched", "--engine", "xla",
+            "--cache-dir", str(SMOKE_CACHE / "xla_backtest")]
+    args[args.index("--simulations") + 1] = str(XLA_SEASON_SIMS)
+    out, wall, k1, k2 = run_counted(rk, lambda: backtest_cli.run(args))
+    calls = engine.engine_counts.calls
+    log(f"[xla backtest] --engine xla --batched, 2024, {XLA_SEASON_SIMS} sims per race: races "
+        f"{out['n_races']}; lap-engine runs {calls}, K1 launches {k1}, K2 {k2}; pole Brier "
+        f"{out['pole_brier']:.6f} (K2 at {SEASON_SIMS} sims {batched_2024['pole_brier']:.6f}), "
+        f"win Brier {out['win_brier']:.6f} (K2 {batched_2024['win_brier']:.6f}); wall {wall:.3f} s; "
+        f"phase {time.perf_counter() - t0:.1f} s")
+    if (k1, k2) != (0, 0) or calls != out["n_races"] or out["n_races"] != batched_2024["n_races"]:
+        raise AssertionError("the --engine xla backtest did not run on the lap engine")
+    if out["pole_brier"] != batched_2024["pole_brier"] or not (
+            abs(out["win_brier"] - batched_2024["win_brier"]) <= WIN_BRIER_ATOL):
+        raise AssertionError("the lap-engine backtest disagrees with the season kernel's")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA GPU")
@@ -778,8 +1019,14 @@ def main() -> None:
     }
 
     t0 = time.perf_counter()
-    laps, k2 = season_phases(dev)
+    laps, k2, sharded_season, batched_2024 = season_phases(dev)
     log(f"[phase] the season paths: {time.perf_counter() - t0:.1f} s")
+
+    sharded = sharded_kernel_phase(dev, predictor, plan, main_counts, plain_counts, plain_ms)
+    sharded["season"] = sharded_season
+    sharded["nccl"] = nccl_phase(dev, plan, main_counts)
+    sharded["two_process"] = two_process_phase(dev, plan, main_counts)
+    xla_cli_phase(dist, batched_2024)
 
     k1_wide = wide_kernel_phases(dev)
     k2["wide"] = [wide_season_phase(dev, laps)]
@@ -790,7 +1037,7 @@ def main() -> None:
     engine_phase(dev)
     mutation_phase(dev)
     log(f"[phase] all: {time.perf_counter() - START:.1f} s")
-    log(json.dumps({"kernels": [k1, k2]}))
+    log(json.dumps({"kernels": [k1, k2, sharded]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

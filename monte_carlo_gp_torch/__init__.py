@@ -11,7 +11,11 @@ against in the tests:
   - `ops.race_kernel`   the whole-race Monte Carlo: a plain PyTorch version
                         (CPU tensors) and the CUDA kernel in
                         `csrc/race_kernel.cu` (CUDA tensors);
-  - `ops.philox`        the Philox4x32-10 counter stream both versions draw.
+  - `ops.philox`        the Philox4x32-10 counter stream both versions draw;
+  - `ops.engine`        the lap engine (plain PyTorch), for fields over 128
+                        drivers and `engine="xla"`;
+  - `parallel`          meshes of devices, the split runs and the
+                        multi-process runtime (`torch.distributed`).
 
 The package imports torch and never jax.
 """

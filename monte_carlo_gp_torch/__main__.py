@@ -1,13 +1,16 @@
 """Run F1 race predictions with the PyTorch port.
 
 The flags and printed sections are those of the JAX package's `main.py`,
-with `--engine` replaced by `--device`. The race Monte Carlo runs the CUDA
-kernel on `--device cuda` (the default; it exits non-zero when no CUDA
-device is present) and its plain PyTorch version on `--device cpu`.
+with `--device` added. The race Monte Carlo runs the CUDA kernel on
+`--device cuda` (the default; it exits non-zero when no CUDA device is
+present) and its plain PyTorch version on `--device cpu`; `--engine xla`
+runs the lap engine instead. On several CUDA devices each takes a share of
+the simulations, and the result is bitwise that of one device.
 
 Examples:
     python -m monte_carlo_gp_torch --race Bahrain --season 2024 --synthetic
     python -m monte_carlo_gp_torch --race Bahrain --season 2024 --synthetic --device cpu
+    python -m monte_carlo_gp_torch --race Bahrain --season 2024 --synthetic --engine xla
     python -m monte_carlo_gp_torch --race Monaco --prediction-point fp3 --simulations 100000
     python -m monte_carlo_gp_torch --build-cache --seasons 2023 2024
 """
@@ -70,6 +73,13 @@ def build_parser() -> argparse.ArgumentParser:
              "plain PyTorch version (cpu)",
     )
     parser.add_argument(
+        "--engine", choices=["auto", "xla", "pallas"], default="auto",
+        help="Simulation backend: the race kernels (pallas; CUDA on --device "
+             "cuda, their plain PyTorch versions on cpu) or the lap engine "
+             "(xla); auto = pallas. Every visible CUDA device takes a share "
+             "of the simulations",
+    )
+    parser.add_argument(
         "--quali-model", choices=["elo", "bayesian", "gbm"], default="elo",
         help="Qualifying model; only 'elo' is ported so far",
     )
@@ -111,6 +121,7 @@ def build_predictor(args):
         device=args.device,
         rookie_prior=args.rookie_prior,
         quali_model=args.quali_model,
+        engine=args.engine,
     )
 
 
@@ -148,7 +159,7 @@ def run(argv: list[str] | None = None):
 
     print("Loading data and running simulations...")
     builds_kernel = False
-    if args.device == "cuda":
+    if args.device == "cuda" and predictor.engine == "pallas":
         from monte_carlo_gp_torch.ops import race_kernel
 
         builds_kernel = not race_kernel.is_built()

@@ -2,14 +2,16 @@
 PyTorch port.
 
 The flags and printed sections are those of the JAX package's
-`backtest.py`, with `--engine` replaced by `--device`: the race Monte Carlo
-runs the CUDA kernels on `--device cuda` (the default; it exits non-zero
-when no CUDA device is present) and their plain PyTorch versions on
-`--device cpu`. `--batched` runs each season's races in one launch of the
-season kernel.
+`backtest.py`, with `--device` added: the race Monte Carlo runs the CUDA
+kernels on `--device cuda` (the default; it exits non-zero when no CUDA
+device is present) and their plain PyTorch versions on `--device cpu`;
+`--engine xla` runs the lap engine instead. `--batched` runs each season's
+races in one launch of the season kernel (one per CUDA device when there
+are several, each with a share of every race's simulations).
 
 Examples:
     python -m monte_carlo_gp_torch.backtest --synthetic --seasons 2024 --batched
+    python -m monte_carlo_gp_torch.backtest --synthetic --seasons 2024 --batched --engine xla
     python -m monte_carlo_gp_torch.backtest --synthetic --seasons 2024 --device cpu \
         --simulations 2048 --checkpoint progress.jsonl
 """
@@ -66,6 +68,13 @@ def build_parser() -> argparse.ArgumentParser:
              "their plain PyTorch versions (cpu)",
     )
     parser.add_argument(
+        "--engine", choices=["auto", "xla", "pallas"], default="auto",
+        help="Simulation backend: the race kernels (pallas; CUDA on --device "
+             "cuda, their plain PyTorch versions on cpu) or the lap engine "
+             "(xla); auto = pallas. Every visible CUDA device takes a share "
+             "of the simulations",
+    )
+    parser.add_argument(
         "--reference-compat-elo-noop", action="store_true",
         help="Reproduce the reference defect where actual-result Elo updates "
              "silently no-op (SURVEY.md §3.2), for A/B comparison",
@@ -95,7 +104,7 @@ def predictor_factory_for(args):
         return F1Predictor(
             cache_dir=args.cache_dir, offline=args.offline, backend=backend,
             device=args.device, rookie_prior=args.rookie_prior,
-            quali_model=args.quali_model,
+            quali_model=args.quali_model, engine=args.engine,
         )
 
     return predictor_factory

@@ -59,6 +59,13 @@
 // season holds many times more short blocks than the SMs take at once: the
 // SMs that finish a short race's blocks early take queued blocks of other
 // races instead of idling through a ragged tail of long blocks.
+//
+// The sharded launch (pallas_engine.py::_sharded_pallas_probs, :1114, and
+// the mesh branch of _season_pallas_probs, :962-983) needs no third kernel:
+// both K1 and K2 take a first simulation index, so a shard launches K1 or K2
+// on its own device for its own simulation range, and the wrapper
+// (ops/race_kernel.py::race_counts_sharded, season_counts_sharded) sums the
+// shards' int32 histograms with one all-reduce.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -647,19 +654,21 @@ __global__ void race_kernel(const float* __restrict__ pmat, const float* __restr
 }
 
 // K2: a season, grid (blocks_per_race, R). Row blockIdx.y is race r: its
-// inputs, lap count, key words and histogram; its simulations are 0..n_sims-1
-// of its own stream, so race r equals K1 at race r's seed bit for bit.
+// inputs, lap count, key words and histogram; its simulations are
+// sim_offset + [0, n_sims) of its own stream, so race r equals K1 at race r's
+// seed and the same simulation range bit for bit. A shard of a split season
+// (ops/race_kernel.season_counts_sharded) runs its own range of every race.
 template <int R>
 __global__ void season_kernel(const float* __restrict__ pmat_s,
                               const float* __restrict__ scal_s,
                               const float* __restrict__ grid_log_s,
                               const int* __restrict__ race_laps,
                               const uint32_t* __restrict__ keys, int* __restrict__ counts,
-                              int d, uint32_t n_sims) {
+                              int d, uint32_t sim_offset, uint32_t n_sims) {
   const int r = blockIdx.y;
   race_block<R>(pmat_s + (size_t)r * d * N_PCOLS, scal_s + (size_t)r * N_SCALARS,
                 grid_log_s + (size_t)r * d * d, counts + (size_t)r * d * d, d, race_laps[r],
-                keys[2 * r], keys[2 * r + 1], 0u, n_sims, blockIdx.x, gridDim.x);
+                keys[2 * r], keys[2 * r + 1], sim_offset, n_sims, blockIdx.x, gridDim.x);
 }
 
 // histogram, scalars, and 32 R ints of inverse permutation per warp
@@ -690,14 +699,14 @@ int launch_race(const float* pmat, const float* scal, const float* grid_log, int
 template <int R>
 int launch_season(const float* pmat_s, const float* scal_s, const float* grid_log_s,
                   const int* race_laps, const uint32_t* keys, int* counts, int n_races, int d,
-                  uint32_t n_sims, int warps_per_block, int blocks_per_race,
-                  cudaStream_t stream) {
+                  uint32_t sim_offset, uint32_t n_sims, int warps_per_block,
+                  int blocks_per_race, cudaStream_t stream) {
   const size_t smem = shared_bytes(d, warps_per_block, R);
   const cudaError_t err = allow_shared(season_kernel<R>, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(blocks_per_race, n_races);
   season_kernel<R><<<grid, 32 * warps_per_block, smem, stream>>>(
-      pmat_s, scal_s, grid_log_s, race_laps, keys, counts, d, n_sims);
+      pmat_s, scal_s, grid_log_s, race_laps, keys, counts, d, sim_offset, n_sims);
   return (int)cudaGetLastError();
 }
 
@@ -760,13 +769,14 @@ extern "C" int mcgp_race_counts(const float* pmat, const float* scal, const floa
 
 // pmat_s (R, d, 8), scal_s (R, 24), grid_log_s (R, d, d) float32; race_laps
 // (R,) int32; keys (R, 2) uint32 key words; counts (R, d, d) int32 zeroed by
-// the caller; d <= 128. Returns the first CUDA error of the shared-memory
-// opt-in and the launch.
+// the caller; d <= 128. Every race runs simulations sim_offset + [0, n_sims)
+// of its stream. Returns the first CUDA error of the shared-memory opt-in and
+// the launch.
 extern "C" int mcgp_season_counts(const float* pmat_s, const float* scal_s,
                                   const float* grid_log_s, const int* race_laps,
                                   const uint32_t* keys, int* counts, int n_races, int d,
-                                  uint32_t n_sims, int warps_per_block, int blocks_per_race,
-                                  void* stream) {
+                                  uint32_t sim_offset, uint32_t n_sims, int warps_per_block,
+                                  int blocks_per_race, void* stream) {
   if (d < 1 || d > kMaxDrivers || warps_per_block < 1 || warps_per_block > 32 ||
       blocks_per_race < 1 || n_races < 1 || n_races > 65535)
     return (int)cudaErrorInvalidValue;
@@ -774,15 +784,15 @@ extern "C" int mcgp_season_counts(const float* pmat_s, const float* scal_s,
   switch ((d + 31) / 32) {
     case 1:
       return launch_season<1>(pmat_s, scal_s, grid_log_s, race_laps, keys, counts, n_races, d,
-                              n_sims, warps_per_block, blocks_per_race, st);
+                              sim_offset, n_sims, warps_per_block, blocks_per_race, st);
     case 2:
       return launch_season<2>(pmat_s, scal_s, grid_log_s, race_laps, keys, counts, n_races, d,
-                              n_sims, warps_per_block, blocks_per_race, st);
+                              sim_offset, n_sims, warps_per_block, blocks_per_race, st);
     case 3:
       return launch_season<3>(pmat_s, scal_s, grid_log_s, race_laps, keys, counts, n_races, d,
-                              n_sims, warps_per_block, blocks_per_race, st);
+                              sim_offset, n_sims, warps_per_block, blocks_per_race, st);
     default:
       return launch_season<4>(pmat_s, scal_s, grid_log_s, race_laps, keys, counts, n_races, d,
-                              n_sims, warps_per_block, blocks_per_race, st);
+                              sim_offset, n_sims, warps_per_block, blocks_per_race, st);
   }
 }

@@ -10,8 +10,10 @@ wet-skill pace adjustments, and the Monte Carlo race simulation.
 
 The host work (`prepare_weekend`) is pandas/numpy and produces the same
 `SimParams` fields as `monte_carlo_gp_tpu.models.predictor`; the Monte Carlo
-(`simulate_plan`) runs the race kernel on the predictor's device: the CUDA
-kernel for "cuda", its plain PyTorch version for "cpu". The lap count is a
+(`simulate_plan`) runs on the predictor's device, on the engine that
+`resolve_engine` picks: the race kernel (the CUDA kernel for "cuda", its
+plain PyTorch version for "cpu") or the lap engine, split over a mesh of
+devices when it has more than one shard (`parallel/`). The lap count is a
 runtime argument of the kernel, so there are no lap-count buckets, and it
 runs exactly the requested number of simulations.
 
@@ -35,7 +37,12 @@ from monte_carlo_gp_torch.models.elo import F1EloSystem
 from monte_carlo_gp_torch.models.features import F1FeatureEngine, _driver_groups, _to_float
 from monte_carlo_gp_torch.models.safety import InsufficientDataError
 from monte_carlo_gp_torch.ops.engine import run_monte_carlo
-from monte_carlo_gp_torch.ops.race_kernel import MAX_DRIVERS, run_monte_carlo_kernel
+from monte_carlo_gp_torch.ops.race_kernel import (
+    MAX_DRIVERS,
+    run_monte_carlo_kernel,
+    run_monte_carlo_kernel_sharded,
+)
+from monte_carlo_gp_torch.parallel.mesh import Mesh, is_split, resolve_mesh, sharded_monte_carlo
 from monte_carlo_gp_torch.utils.logging import log_event
 
 # FP-session fallback chains per prediction point.
@@ -85,6 +92,27 @@ def resolve_device(device: str | torch.device) -> torch.device:
     return dev
 
 
+ENGINES = ("auto", "xla", "pallas")
+
+
+def resolve_engine(engine: str) -> str:
+    """The engine policy of the CLIs and the predictor, with the JAX
+    package's choices: "pallas" is the race kernels K1/K2 (the CUDA kernels
+    on CUDA tensors, their plain PyTorch versions on CPU tensors), "xla" the
+    lap engine (`ops/engine.py`, plain PyTorch on either device).
+
+    "auto" resolves to "pallas" on both devices. The JAX package resolves
+    it to "xla" off the TPU because its Pallas kernel has no PRNG off the
+    TPU (the interpreter draws zeros); the port's plain version draws the
+    kernel's own Philox stream on the CPU, so "auto" keeps every result the
+    port gave before it had an engine choice."""
+    if engine == "auto":
+        return "pallas"
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r} (use 'auto', 'xla' or 'pallas')")
+    return engine
+
+
 @dataclasses.dataclass(frozen=True)
 class WeekendPlan:
     """A fully prepared race weekend: simulation inputs + result-assembly
@@ -102,7 +130,11 @@ class WeekendPlan:
 
 class F1Predictor:
     """Weekend orchestrator with the JAX package's public surface, running
-    the Monte Carlo on `device`."""
+    the Monte Carlo on `device` with `engine`, split over `mesh` (default:
+    every visible CUDA device for "cuda", the CPU for "cpu")."""
+
+    engine = "pallas"
+    mesh: Mesh | None = None
 
     def __init__(
         self,
@@ -115,6 +147,8 @@ class F1Predictor:
         device: str | torch.device = "cuda",
         rookie_prior: bool = False,
         quali_model: str = "elo",
+        engine: str = "auto",
+        mesh: Mesh | None = None,
     ):
         if quali_model not in QUALI_MODELS:
             raise ValueError(
@@ -127,6 +161,8 @@ class F1Predictor:
                 "monte_carlo_gp_torch (ROADMAP.md, queue A item 7); use 'elo'"
             )
         self.device = resolve_device(device)
+        self.engine = resolve_engine(engine)
+        self.mesh = mesh
         self.data_loader = F1DataLoader(
             cache_dir=cache_dir, offline=offline, backend=backend, now=now
         )
@@ -210,6 +246,8 @@ class F1Predictor:
         actual_grid: dict[str, int] | None = None,
         n_simulations: int = 10_000,
         seed: int | None = None,
+        engine: str | None = None,
+        mesh: Mesh | None = None,
     ) -> dict:
         plan = self.prepare_weekend(
             season,
@@ -219,7 +257,7 @@ class F1Predictor:
             prediction_point=prediction_point,
             actual_grid=actual_grid,
         )
-        probs = self.simulate_plan(plan, n_simulations, seed)
+        probs = self.simulate_plan(plan, n_simulations, seed, engine=engine, mesh=mesh)
         return self.assemble_result(plan, probs)
 
     def prepare_weekend(
@@ -354,31 +392,50 @@ class F1Predictor:
         )
 
     def simulate_plan(
-        self, plan: WeekendPlan, n_simulations: int, seed: int | None = None
+        self,
+        plan: WeekendPlan,
+        n_simulations: int,
+        seed: int | None = None,
+        engine: str | None = None,
+        mesh: Mesh | None = None,
     ) -> np.ndarray:
         """Run the Monte Carlo for a prepared weekend on the predictor's
         device; returns the (D, D) finish-probability matrix. `seed=None`
-        means 0.
+        means 0; `engine` and `mesh` override the predictor's for this call.
 
-        Fields of up to MAX_DRIVERS (128) drivers run on the race kernel.
-        Its rank keys pack rank*M+row (M = 32/64/128 by field size), which
-        caps the driver axis at 128; the reference simulator is size-generic
-        (simulation.py:59-100), so wider fields run on the lap engine
-        (`ops.engine.run_monte_carlo`) on the same device, as the JAX
-        package routes them (its predictor.py:444-456). This routes by field
-        size; a kernel error still raises."""
+        "pallas" runs fields of up to MAX_DRIVERS (128) drivers on the race
+        kernel: `run_monte_carlo_kernel_sharded` when the mesh has more than
+        one shard or a process group is up, `run_monte_carlo_kernel`
+        otherwise (the JAX package's predictor.py:457-492). Its rank keys
+        pack rank*M+row (M = 32/64/128 by field size), which caps the driver
+        axis at 128; the reference simulator is size-generic
+        (simulation.py:59-100), so wider fields run on the lap engine, as
+        "xla" does, and log `engine_fallback_eager` (the JAX package's
+        `engine_fallback_xla`, predictor.py:444-456). The lap engine is split
+        the same way (`sharded_monte_carlo`). Every route gives bitwise the
+        same result for any mesh; a kernel error raises."""
         n = int(n_simulations)
         seed = 0 if seed is None else seed
+        engine = resolve_engine(engine) if engine else self.engine
+        mesh = resolve_mesh(mesh if mesh is not None else self.mesh, self.device)
+        split = is_split(mesh)
         params = plan.params.to(self.device)
-        if params.n_drivers > MAX_DRIVERS:
+        if engine == "pallas" and params.n_drivers > MAX_DRIVERS:
             log_event(
                 "engine_fallback_eager",
                 reason=f"n_drivers>{MAX_DRIVERS} exceeds the race kernel's rank-key packing",
                 n_drivers=params.n_drivers,
             )
-            probs = run_monte_carlo(params, seed, n, plan.total_laps)
+            engine = "xla"
+        if engine == "pallas":
+            if split:
+                probs = run_monte_carlo_kernel_sharded(params, seed, n, plan.total_laps, mesh)
+            else:
+                probs = run_monte_carlo_kernel(params, seed, n, plan.total_laps)
+        elif split:
+            probs = sharded_monte_carlo(params, seed, n, plan.total_laps, mesh)
         else:
-            probs = run_monte_carlo_kernel(params, seed, n, plan.total_laps)
+            probs = run_monte_carlo(params, seed, n, plan.total_laps)
         self.last_effective_sims = n
         return probs.cpu().numpy()
 

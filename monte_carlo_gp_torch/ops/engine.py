@@ -79,21 +79,23 @@ def simulate_races(
     return simulate_races_state(params, seed, n_sims, race_laps, sim_offset)[0]
 
 
-def run_monte_carlo(
+def engine_counts(
     params: SimParams,
     seed: int,
     n_sims: int,
     race_laps: int,
+    sim_offset: int = 0,
     sims_per_block: int | None = None,
 ) -> torch.Tensor:
-    """(D, D) float32 [driver, position] finish probabilities of `n_sims`
-    simulated races on the params' device: probs[driver, p] = P(driver
-    finishes in position p + 1). Blocks of `sims_per_block` simulations
-    (default DEFAULT_SIMS_PER_BLOCK; the last block may be shorter) run one
-    after another; the result does not depend on the block size. Counts its
-    calls in `run_monte_carlo.calls`."""
-    if n_sims < 1:
-        raise ValueError(f"n_sims must be >= 1, got {n_sims}")
+    """(D, D) int64 [driver, position] finish counts of simulations
+    [sim_offset, sim_offset + n_sims) on the params' device. Blocks of
+    `sims_per_block` simulations (default DEFAULT_SIMS_PER_BLOCK; the last
+    block may be shorter) run one after another; the counts depend on
+    neither the blocks nor the offset at which a range is cut, so ranges
+    summed are the whole (the sharded runs of `parallel/`). Counts its calls
+    in `engine_counts.calls`."""
+    if n_sims < 0:
+        raise ValueError(f"n_sims must be >= 0, got {n_sims}")
     if race_laps < 1:
         raise ValueError(f"race_laps must be >= 1, got {race_laps}")
     block = DEFAULT_SIMS_PER_BLOCK if sims_per_block is None else int(sims_per_block)
@@ -104,10 +106,34 @@ def run_monte_carlo(
     counts = torch.zeros(d * d, dtype=torch.int64, device=dev)
     row = torch.arange(d, device=dev)[None, :]
     for lo in range(0, n_sims, block):
-        positions = simulate_races(params, seed, min(block, n_sims - lo), race_laps, lo)
+        positions = simulate_races(
+            params, seed, min(block, n_sims - lo), race_laps, sim_offset + lo
+        )
         counts += torch.bincount((row * d + positions - 1).flatten(), minlength=d * d)
+    engine_counts.calls += 1
+    return counts.view(d, d)
+
+
+engine_counts.calls = 0
+
+
+def run_monte_carlo(
+    params: SimParams,
+    seed: int,
+    n_sims: int,
+    race_laps: int,
+    sims_per_block: int | None = None,
+) -> torch.Tensor:
+    """(D, D) float32 [driver, position] finish probabilities of `n_sims`
+    simulated races on the params' device: probs[driver, p] = P(driver
+    finishes in position p + 1); the result does not depend on
+    `sims_per_block` (see `engine_counts`). Counts its calls in
+    `run_monte_carlo.calls`."""
+    if n_sims < 1:
+        raise ValueError(f"n_sims must be >= 1, got {n_sims}")
+    counts = engine_counts(params, seed, n_sims, race_laps, sims_per_block=sims_per_block)
     run_monte_carlo.calls += 1
-    return (counts.to(torch.float32) / n_sims).view(d, d)
+    return counts.to(torch.float32) / n_sims
 
 
 run_monte_carlo.calls = 0

@@ -6,7 +6,10 @@ lap 1, laps 2..race_laps, classification) and adds its finishing order to a
 season of races in one launch. For CPU tensors they run `race_counts_plain`
 and `season_counts_plain`, the plain PyTorch versions; for CUDA tensors
 they launch the hand-written kernels in `csrc/race_kernel.cu` (one warp per
-simulation, ceil(D / 32) cars per lane, one race body for both), or raise. Both follow the Pallas kernel
+simulation, ceil(D / 32) cars per lane, one race body for both), or raise.
+`race_counts_sharded` and `season_counts_sharded` split the simulations over
+a mesh of devices (`parallel/mesh.py`) and sum the shards' counts, with one
+all-reduce across processes. Both follow the Pallas kernel
 body `monte_carlo_gp_tpu/ops/pallas_engine.py::_race_kernel` operation for
 operation, in float32 and in the same order, and draw from the same Philox
 stream (`ops/philox.py`), so on the same inputs they agree up to the last
@@ -21,8 +24,8 @@ overtake pass (3 passes).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-import dataclasses
 import functools
 
 import torch
@@ -31,6 +34,9 @@ from monte_carlo_gp_torch import config as cfg
 from monte_carlo_gp_torch.config import SimParams
 from monte_carlo_gp_torch.ops import philox
 from monte_carlo_gp_torch.ops.ranking import inverse_permutation, rank_key, rank_tier
+from monte_carlo_gp_torch.parallel import distributed
+from monte_carlo_gp_torch.parallel.mesh import Mesh, local_shards, make_mesh
+from monte_carlo_gp_torch.parallel.sharded import pad_params
 
 INF = 1e30
 
@@ -89,42 +95,20 @@ def pack_inputs(params: SimParams) -> tuple[torch.Tensor, torch.Tensor, torch.Te
     return pmat.contiguous(), scal.contiguous(), grid_log.to(torch.float32).contiguous()
 
 
-def _pad_params(params: SimParams, d_max: int) -> SimParams:
-    """`params` with its driver axis padded to `d_max` slots: padding slots
-    are inactive, with zero pace, degradation, variance, DNF rates and grid
-    probabilities."""
-    extra = d_max - params.n_drivers
-    if extra == 0:
-        return params
-
-    def pad1(t):
-        return torch.nn.functional.pad(t, (0, extra))
-
-    return dataclasses.replace(
-        params,
-        grid_probs=torch.nn.functional.pad(params.grid_probs, (0, extra, 0, extra)),
-        base_pace=pad1(params.base_pace),
-        tire_deg=pad1(params.tire_deg),
-        variance=pad1(params.variance),
-        dnf_rate=pad1(params.dnf_rate),
-        team_dnf_rate=pad1(params.team_dnf_rate),
-        active=pad1(params.active),
-    )
-
-
 def pack_season_inputs(
     params_list: list[SimParams],
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
     """(pmat_s (R, D, 8), scal_s (R, 24), grid_log_s (R, D, D), D) for a
     season of R races on their params' device, D the widest field. Narrower
-    fields are padded as `monte_carlo_gp_tpu.parallel.sharded.stack_params`
-    pads them: padding slots are inactive (they start retired and classify
-    after every real car), with zero pace, degradation, variance and DNF
-    rates and zero grid probabilities (-1e30 in grid_log)."""
+    fields are padded by `parallel.sharded.pad_params`, as
+    `monte_carlo_gp_tpu.parallel.sharded.stack_params` pads them: padding
+    slots are inactive (they start retired and classify after every real
+    car), with zero pace, degradation, variance and DNF rates and zero grid
+    probabilities (-1e30 in grid_log)."""
     if not params_list:
         raise ValueError("a season needs at least one race")
     d_max = max(p.n_drivers for p in params_list)
-    packed = [pack_inputs(_pad_params(p, d_max)) for p in params_list]
+    packed = [pack_inputs(pad_params(p, d_max)) for p in params_list]
     pmat_s, scal_s, grid_log_s = (torch.stack(parts).contiguous() for parts in zip(*packed))
     return pmat_s, scal_s, grid_log_s, d_max
 
@@ -463,7 +447,7 @@ def race_counts_plain(
     return counts.view(d, d)
 
 
-def _check_season_inputs(pmat_s, scal_s, grid_log_s, race_laps, n_sims, seeds):
+def _check_season_inputs(pmat_s, scal_s, grid_log_s, race_laps, n_sims, seeds, sim_offset=0):
     """(R, D, race_laps as ints, seeds as ints) after the single-race checks
     on every race of the season."""
     if pmat_s.dim() != 3 or scal_s.dim() != 2 or grid_log_s.dim() != 3:
@@ -485,7 +469,7 @@ def _check_season_inputs(pmat_s, scal_s, grid_log_s, race_laps, n_sims, seeds):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     for r in range(n_races):
-        d = _check_inputs(pmat_s[r], scal_s[r], grid_log_s[r], laps[r], n_sims, 0)
+        d = _check_inputs(pmat_s[r], scal_s[r], grid_log_s[r], laps[r], n_sims, sim_offset)
         philox.seed_key(seeds[r])
     return n_races, d, laps, seeds
 
@@ -497,20 +481,21 @@ def season_counts_plain(
     race_laps,
     n_sims_per_race: int,
     seeds,
+    sim_offset: int = 0,
     bits=None,
 ) -> torch.Tensor:
     """The plain PyTorch version of the season kernel, on pmat_s's device:
     (R, D, D) int64 counts, race r being `race_counts_plain` of race r's
     inputs, its own lap count `race_laps[r]` and simulations
-    0..n_sims_per_race-1 of the stream of `seeds[r]` (or of `bits`, the same
-    bit source for every race)."""
+    [sim_offset, sim_offset + n_sims_per_race) of the stream of `seeds[r]`
+    (or of `bits`, the same bit source for every race)."""
     n_races, _, laps, seeds = _check_season_inputs(
-        pmat_s, scal_s, grid_log_s, race_laps, n_sims_per_race, seeds
+        pmat_s, scal_s, grid_log_s, race_laps, n_sims_per_race, seeds, sim_offset
     )
     return torch.stack([
         race_counts_plain(
             pmat_s[r], scal_s[r], grid_log_s[r], laps[r], n_sims_per_race, seeds[r],
-            bits=bits,
+            sim_offset, bits=bits,
         )
         for r in range(n_races)
     ])
@@ -552,7 +537,7 @@ def build():
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_uint32,
+            ctypes.c_int, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32,
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
@@ -670,14 +655,15 @@ def season_counts(
     race_laps,
     n_sims_per_race: int,
     seeds,
+    sim_offset: int = 0,
     warps_per_block: int | None = None,
     blocks_per_race: int | None = None,
 ) -> torch.Tensor:
     """(R, D, D) [race, driver, position] finish counts of a season: race r
-    runs simulations 0..n_sims_per_race-1 of the Philox stream of
-    `seeds[r]` over its own `race_laps[r]` laps, so it equals
-    `race_counts(pmat_s[r], scal_s[r], grid_log_s[r], race_laps[r],
-    n_sims_per_race, seeds[r])` bit for bit.
+    runs simulations [sim_offset, sim_offset + n_sims_per_race) of the
+    Philox stream of `seeds[r]` over its own `race_laps[r]` laps, so it
+    equals `race_counts(pmat_s[r], scal_s[r], grid_log_s[r], race_laps[r],
+    n_sims_per_race, seeds[r], sim_offset)` bit for bit.
 
     CPU tensors run `season_counts_plain` (int64 counts). CUDA tensors run
     the whole season as one launch of the season kernel on the current
@@ -688,12 +674,12 @@ def season_counts(
     free their SMs for queued ones instead of leaving a ragged tail)."""
     if pmat_s.device.type == "cpu":
         return season_counts_plain(
-            pmat_s, scal_s, grid_log_s, race_laps, n_sims_per_race, seeds
+            pmat_s, scal_s, grid_log_s, race_laps, n_sims_per_race, seeds, sim_offset
         )
     if pmat_s.device.type != "cuda":
         raise ValueError(f"season_counts runs on cpu or cuda tensors, not {pmat_s.device}")
     n_races, d, laps, seeds = _check_season_inputs(
-        pmat_s, scal_s, grid_log_s, race_laps, n_sims_per_race, seeds
+        pmat_s, scal_s, grid_log_s, race_laps, n_sims_per_race, seeds, sim_offset
     )
     _check_warps(warps_per_block)
     if n_races > 65535:
@@ -716,7 +702,7 @@ def season_counts(
         err = _lib.mcgp_season_counts(
             pmat_s.data_ptr(), scal_s.data_ptr(), grid_log_s.data_ptr(),
             laps_t.data_ptr(), keys.data_ptr(), counts.data_ptr(),
-            n_races, d, n_sims_per_race, warps_per_block, blocks_per_race,
+            n_races, d, sim_offset, n_sims_per_race, warps_per_block, blocks_per_race,
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
@@ -728,17 +714,126 @@ def season_counts(
 season_counts.launches = 0
 
 
+def _sharded_counts(
+    launch, inputs: list[torch.Tensor], n_sims: int, mesh: Mesh, shape: tuple[int, ...]
+) -> tuple[torch.Tensor, bool]:
+    """(the `shape` counts of `n_sims` simulations split over `mesh` and the
+    process group, on the first input's device; whether a CUDA shard ran):
+    `launch(*inputs on the shard's device, sim_offset, n)` runs one shard's
+    range. Every shard is launched, each on its device's current stream,
+    before any is waited for, so shards on several cards run at once; then
+    the shards' counts are summed on the inputs' device and all-reduced
+    across processes once. The sum is int32 on a mesh of CUDA devices (as
+    one launch gives) and int64 otherwise."""
+    home = inputs[0].device
+    copies: dict[torch.device, list[torch.Tensor]] = {}
+    parts = []
+    on_cuda = False
+    for dev, lo, hi in local_shards(mesh, n_sims):
+        if hi == lo:
+            continue
+        on_cuda |= dev.type == "cuda"
+        if dev not in copies:
+            copies[dev] = [t.to(dev) for t in inputs]
+        guard = torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+        with guard:
+            parts.append(launch(*copies[dev], lo, hi - lo))
+    dtype = torch.int32 if all(d.type == "cuda" for d in mesh.devices) else torch.int64
+    total = torch.zeros(shape, dtype=dtype, device=home)
+    for part in parts:
+        total += part.to(home)
+    return distributed.all_reduce_counts(total), on_cuda
+
+
+def race_counts_sharded(
+    pmat: torch.Tensor,
+    scal: torch.Tensor,
+    grid_log: torch.Tensor,
+    race_laps: int,
+    n_sims: int,
+    seed: int = 0,
+    mesh: Mesh | None = None,
+) -> torch.Tensor:
+    """(D, D) counts of simulations [0, n_sims) of the stream of `seed`,
+    split over `mesh` (default `make_mesh()`: every visible CUDA device, or
+    the CPU) and the process group: the counterpart of the JAX package's
+    sharded launch, `run_monte_carlo_pallas_sharded` (pallas_engine.py:1114).
+    Shard i of W runs `race_counts` on its device for its own range
+    (`parallel.mesh.shard_range`); a CUDA shard launches K1, a CPU shard
+    runs the plain version. The JAX package pads the tile grid to a
+    multiple of the device count and zeroes the pad tiles; here the ranges
+    split any n exactly. The counts are bitwise those of one `race_counts`
+    call for any mesh and any process count: the Philox counter is the
+    global simulation index and integer sums are exact. Counts in
+    `race_counts_sharded.launches` the calls that launched K1."""
+    if mesh is None:
+        mesh = make_mesh()
+    d = _check_inputs(pmat, scal, grid_log, race_laps, n_sims, 0)
+
+    def launch(pmat, scal, grid_log, lo, n):
+        return race_counts(pmat, scal, grid_log, race_laps, n, seed, sim_offset=lo)
+
+    counts, launched = _sharded_counts(launch, [pmat, scal, grid_log], n_sims, mesh, (d, d))
+    if launched:
+        race_counts_sharded.launches += 1
+    return counts
+
+
+race_counts_sharded.launches = 0
+
+
+def season_counts_sharded(
+    pmat_s: torch.Tensor,
+    scal_s: torch.Tensor,
+    grid_log_s: torch.Tensor,
+    race_laps,
+    n_sims_per_race: int,
+    seeds,
+    mesh: Mesh | None = None,
+) -> torch.Tensor:
+    """(R, D, D) counts of a season with every race's simulations split
+    over `mesh` (default `make_mesh()`) and the process group: shard i runs
+    its own range [lo, hi) of every race in one `season_counts` call on its
+    device (K2 on a CUDA device), and the (R, D, D) counts are summed and
+    all-reduced once. The counterpart of the mesh branch of the JAX
+    package's season launch (pallas_engine.py:962-983), which cuts its flat
+    tile grid across race boundaries instead; cutting every race gives each
+    shard 1/W of every race, and the counts are the same bit for bit: those
+    of one `season_counts` call, for any mesh. Counts in
+    `season_counts_sharded.launches` the calls that launched K2."""
+    if mesh is None:
+        mesh = make_mesh()
+    n_races, d, laps, seeds = _check_season_inputs(
+        pmat_s, scal_s, grid_log_s, race_laps, n_sims_per_race, seeds
+    )
+
+    def launch(pmat_s, scal_s, grid_log_s, lo, n):
+        return season_counts(pmat_s, scal_s, grid_log_s, laps, n, seeds, sim_offset=lo)
+
+    counts, launched = _sharded_counts(
+        launch, [pmat_s, scal_s, grid_log_s], n_sims_per_race, mesh, (n_races, d, d)
+    )
+    if launched:
+        season_counts_sharded.launches += 1
+    return counts
+
+
+season_counts_sharded.launches = 0
+
+
 def run_monte_carlo_season(
     params_list: list[SimParams],
     race_laps_list: list[int],
     season_seed: int,
     n_sims_per_race: int,
+    mesh: Mesh | None = None,
 ) -> torch.Tensor:
     """(R, D, D) float32 [race, driver, position] finish probabilities of a
     season on the params' device, D the widest field (narrower fields are
     padded; their real drivers finish in positions 1..d) — the counterpart
     of `monte_carlo_gp_tpu.ops.pallas_engine.run_monte_carlo_pallas_season`,
-    with exactly `n_sims_per_race` simulations per race.
+    with exactly `n_sims_per_race` simulations per race: one season launch,
+    or with a `mesh`, `season_counts_sharded` over it (bitwise the same).
 
     Race r is seeded with `philox.fold_in(season_seed, r)`, so it equals
     `run_monte_carlo_kernel` of race r's (padded) params at that seed."""
@@ -748,7 +843,12 @@ def run_monte_carlo_season(
         raise ValueError("race_laps_list must match params_list")
     pmat_s, scal_s, grid_log_s, _ = pack_season_inputs(params_list)
     seeds = [philox.fold_in(season_seed, r) for r in range(len(params_list))]
-    counts = season_counts(pmat_s, scal_s, grid_log_s, race_laps_list, n_sims_per_race, seeds)
+    if mesh is None:
+        counts = season_counts(pmat_s, scal_s, grid_log_s, race_laps_list, n_sims_per_race, seeds)
+    else:
+        counts = season_counts_sharded(
+            pmat_s, scal_s, grid_log_s, race_laps_list, n_sims_per_race, seeds, mesh
+        )
     return counts.to(torch.float32) / n_sims_per_race
 
 
@@ -763,4 +863,18 @@ def run_monte_carlo_kernel(
         raise ValueError(f"n_sims must be >= 1, got {n_sims}")
     pmat, scal, grid_log = pack_inputs(params)
     counts = race_counts(pmat, scal, grid_log, race_laps, n_sims, seed)
+    return counts.to(torch.float32) / n_sims
+
+
+def run_monte_carlo_kernel_sharded(
+    params: SimParams, seed: int, n_sims: int, race_laps: int, mesh: Mesh | None = None
+) -> torch.Tensor:
+    """`run_monte_carlo_kernel` with the simulations split over `mesh`
+    (default `make_mesh()`) and the process group by `race_counts_sharded`:
+    bitwise the same probabilities, on the params' device — the counterpart
+    of `monte_carlo_gp_tpu.ops.pallas_engine.run_monte_carlo_pallas_sharded`."""
+    if n_sims < 1:
+        raise ValueError(f"n_sims must be >= 1, got {n_sims}")
+    pmat, scal, grid_log = pack_inputs(params)
+    counts = race_counts_sharded(pmat, scal, grid_log, race_laps, n_sims, seed, mesh)
     return counts.to(torch.float32) / n_sims

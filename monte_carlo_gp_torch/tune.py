@@ -3,10 +3,10 @@ port: sweep simulation scalars (safety-car rate, DRS delta, variance
 scale, ...) over a grid and rank configurations by backtest metric.
 
 The flags and the table are those of the JAX package's `tune.py`, with
-`--engine` replaced by `--device` (`cuda`, the default, runs the season
-kernel and exits non-zero without a CUDA device; `cpu` runs its plain
-PyTorch version). The host preparation runs once and every configuration
-reuses it under common random numbers (see
+`--device` added (`cuda`, the default, runs the season kernel and exits
+non-zero without a CUDA device; `cpu` runs its plain PyTorch version);
+`--engine xla` runs the lap engine instead. The host preparation runs once
+and every configuration reuses it under common random numbers (see
 monte_carlo_gp_torch/validate/tune.py).
 
     python -m monte_carlo_gp_torch.tune --seasons 2024 --synthetic \
@@ -75,6 +75,13 @@ def build_parser() -> argparse.ArgumentParser:
         help="Where the season Monte Carlo runs: the CUDA kernel (cuda) or "
              "its plain PyTorch version (cpu)",
     )
+    parser.add_argument(
+        "--engine", choices=["auto", "xla", "pallas"], default="auto",
+        help="Simulation backend: the race kernels (pallas; CUDA on --device "
+             "cuda, their plain PyTorch versions on cpu) or the lap engine "
+             "(xla); auto = pallas. Every visible CUDA device takes a share "
+             "of the simulations",
+    )
     return parser
 
 
@@ -96,7 +103,7 @@ def run(argv: list[str] | None = None) -> dict:
             backend = SyntheticBackend(seed=args.synthetic_seed)
         return F1Predictor(
             cache_dir=args.cache_dir, offline=args.offline, backend=backend,
-            device=args.device,
+            device=args.device, engine=args.engine,
         )
 
     try:

@@ -21,7 +21,9 @@ What the JAX package fixes over the reference, kept here:
 The sequential backtest runs the single-race kernel once per race through
 `predict_weekend`; the batched one prepares the whole season on the host
 and then runs every race in ONE launch of the season kernel
-(`ops.race_kernel.run_monte_carlo_season`), on the predictor's device.
+(`ops.race_kernel.run_monte_carlo_season`), on the predictor's device. With
+`engine="xla"` both take the lap engine instead, and on a mesh of several
+shards every path splits its simulations (`simulate_season_plans`).
 """
 
 from __future__ import annotations
@@ -34,7 +36,10 @@ import pandas as pd
 
 from monte_carlo_gp_torch import config as cfg
 from monte_carlo_gp_torch.ops import philox
+from monte_carlo_gp_torch.models.predictor import resolve_engine
 from monte_carlo_gp_torch.ops.race_kernel import MAX_DRIVERS, run_monte_carlo_season
+from monte_carlo_gp_torch.parallel.mesh import Mesh, is_split, resolve_mesh
+from monte_carlo_gp_torch.parallel.sharded import simulate_season_sharded
 from monte_carlo_gp_torch.utils.logging import log_event
 from monte_carlo_gp_torch.validate.metrics import (
     brier_score,
@@ -166,6 +171,8 @@ def backtest_model(
     reference_compat_elo_noop: bool = False,
     pin_clock: bool = True,
     verbose: bool = True,
+    engine: str | None = None,
+    mesh: Mesh | None = None,
 ) -> dict:
     """Run the walk-forward backtest and score it.
 
@@ -181,6 +188,8 @@ def backtest_model(
       pin_clock: pin the loader clock to each race's date before predicting
         it, so Elo/feature inputs never see that race or later ones (see
         module docstring). False reproduces the reference's leaky behavior.
+      engine, mesh: passed to every `predict_weekend` (default: the
+        predictor's own).
 
     Returns the reference's result dict: pole_brier, win_brier,
     podium_accuracy, calibration_curve, n_races.
@@ -240,6 +249,8 @@ def backtest_model(
                     race,
                     n_simulations=n_simulations,
                     seed=seed * 1_000_003 + season * 1_000 + race_idx,
+                    engine=engine,
+                    mesh=mesh,
                 )
                 act = get_actual_results(loader, season, race)
                 slim = {
@@ -291,6 +302,8 @@ def backtest_model_batched(
     reference_compat_elo_noop: bool = False,
     pin_clock: bool = True,
     verbose: bool = True,
+    engine: str | None = None,
+    mesh: Mesh | None = None,
 ) -> dict:
     """Season backtest with one device launch per season: the walk-forward
     Elo/feature preparation runs sequentially on the host, then EVERY race's
@@ -300,7 +313,8 @@ def backtest_model_batched(
     Statistically equivalent to `backtest_model` (prediction for race k only
     uses information from races < k — the simulation itself never feeds back
     into preparation); the season's seed is `seed * 1_000_003 + season`, and
-    race r is seeded with `philox.fold_in` of it.
+    race r is seeded with `philox.fold_in` of it. `engine` and `mesh` go to
+    `simulate_season_plans`.
     """
     predictions, actuals = [], []
     for season in seasons:
@@ -313,7 +327,8 @@ def backtest_model_batched(
         if not plans:
             continue
         probs = simulate_season_plans(
-            predictor, plans, seed * 1_000_003 + season, n_simulations
+            predictor, plans, seed * 1_000_003 + season, n_simulations,
+            engine=engine, mesh=mesh,
         )
         preds, a = score_season_plans(predictor, plans, acts, probs)
         predictions.extend(preds)
@@ -384,39 +399,52 @@ def simulate_season_plans(
     season_seed: int,
     n_simulations: int,
     params_list: list | None = None,
+    engine: str | None = None,
+    mesh: Mesh | None = None,
 ) -> list:
     """Simulate a season's prepared plans on the predictor's device -> list
     of finish-probability arrays, one per plan.
 
-    Race r is seeded with `philox.fold_in(season_seed, r)`, so a race's
-    result does not depend on the other plans in the batch. `params_list`
-    optionally overrides each plan's SimParams (same order and length as
-    `plans`) — the parameter sweep's hook.
+    Race r is seeded with `philox.fold_in(season_seed, r)` on every path, so
+    a race's result depends neither on the path nor on the other plans in
+    the batch. `params_list` optionally overrides each plan's SimParams
+    (same order and length as `plans`) — the parameter sweep's hook.
+    `engine` and `mesh` default to the predictor's. The routes are the JAX
+    package's (validate/backtest.py:412-484):
 
-    A season whose widest field has at most MAX_DRIVERS (128) drivers runs
-    as one launch of the season kernel, and every array is (D, D), D that
-    widest field. A wider season runs race by race through
-    `predictor.simulate_plan` at race r's seed, so each race takes the race
-    kernel or, above 128 drivers, the lap engine, and its array is its own
-    field's (d, d): the JAX package's route for such seasons
-    (validate/backtest.py:457-471), with the same seed chain.
+      * "pallas", widest field at most MAX_DRIVERS (128): one launch of the
+        season kernel, or with a mesh of several shards (or a process
+        group) one per shard; every array is (D, D), D the widest field;
+      * "pallas", a wider field: race by race through
+        `predictor.simulate_plan`, so each race takes the race kernel or,
+        above 128 drivers, the lap engine, and its array is its own field's
+        (d, d);
+      * "xla": the lap-engine season, `parallel.sharded.simulate_season_sharded`,
+        split over the mesh; every array is (D, D).
     """
     if params_list is None:
         params_list = [p.params for p in plans]
     n = int(n_simulations)
-    if max(p.n_drivers for p in params_list) > MAX_DRIVERS:
+    engine = resolve_engine(engine) if engine else predictor.engine
+    mesh = resolve_mesh(mesh if mesh is not None else predictor.mesh, predictor.device)
+    laps = [p.total_laps for p in plans]
+    if engine == "xla":
+        probs = simulate_season_sharded(
+            [p.to(predictor.device) for p in params_list], laps, season_seed, n, mesh
+        )
+    elif max(p.n_drivers for p in params_list) > MAX_DRIVERS:
         return [
             predictor.simulate_plan(
-                dataclasses.replace(plan, params=prm), n, seed=philox.fold_in(season_seed, r)
+                dataclasses.replace(plan, params=prm), n, seed=philox.fold_in(season_seed, r),
+                engine=engine, mesh=mesh,
             )
             for r, (plan, prm) in enumerate(zip(plans, params_list))
         ]
-    probs = run_monte_carlo_season(
-        [p.to(predictor.device) for p in params_list],
-        [p.total_laps for p in plans],
-        season_seed,
-        n,
-    )
+    else:
+        probs = run_monte_carlo_season(
+            [p.to(predictor.device) for p in params_list], laps, season_seed, n,
+            mesh=mesh if is_split(mesh) else None,
+        )
     predictor.last_effective_sims = n
     return list(probs.cpu().numpy())
 

@@ -34,6 +34,7 @@ from collections.abc import Sequence
 import torch
 
 from monte_carlo_gp_torch.config import SimParams
+from monte_carlo_gp_torch.parallel.mesh import Mesh
 from monte_carlo_gp_torch.utils.logging import log_event
 from monte_carlo_gp_torch.validate.backtest import (
     prepare_season_plans,
@@ -124,6 +125,8 @@ def sweep_backtest(
     pin_clock: bool = True,
     include_default: bool = True,
     verbose: bool = True,
+    engine: str | None = None,
+    mesh: Mesh | None = None,
 ) -> dict:
     """Backtest every configuration in `param_grid` and rank by `metric`.
 
@@ -143,6 +146,8 @@ def sweep_backtest(
       include_default: also evaluate the un-overridden configuration (it
         reproduces `backtest_model_batched` exactly) and report it as
         `default` for before/after comparison.
+      engine, mesh: passed to `simulate_season_plans` (default: each
+        predictor's own).
 
     Returns {'results': [per-config records, best first], 'best': record,
     'default': record or None, 'metric': metric, 'n_configs': int}. Each
@@ -183,7 +188,7 @@ def sweep_backtest(
             params_list = [apply_overrides(p.params, overrides) for p in plans]
             probs = simulate_season_plans(
                 predictor, plans, seed * 1_000_003 + season, n_simulations,
-                params_list=params_list,
+                params_list=params_list, engine=engine, mesh=mesh,
             )
             preds, a = score_season_plans(predictor, plans, acts, probs)
             predictions.extend(preds)

@@ -1,7 +1,7 @@
 """The CUDA race kernels (`monte_carlo_gp_torch/csrc/race_kernel.cu`: K1, one
 race, and K2, a season in one launch) against their plain PyTorch versions on
-the same Philox stream. Every test here needs a CUDA device and skips
-without one.
+the same Philox stream, and their sharded launches against one launch. Every
+test here needs a CUDA device and skips without one.
 
 This file imports torch and the port only, so it also runs on a GPU machine
 without jax:
@@ -16,6 +16,7 @@ import torch
 from monte_carlo_gp_torch.config import make_sim_params
 from monte_carlo_gp_torch.ops import philox
 from monte_carlo_gp_torch.ops import race_kernel as rk
+from monte_carlo_gp_torch.parallel.mesh import make_mesh
 
 # only last-bit differences of log/cos between the kernel and the plain
 # version may flip a decision, which moves a handful of simulations: per
@@ -212,3 +213,56 @@ def test_wide_season_matches_plain_and_single_races(cuda_device):
     shaped = rk.season_counts(pmat_s, scal_s, grid_log_s, laps, n, seeds,
                               warps_per_block=3, blocks_per_race=11)
     assert torch.equal(kernel, shaped)
+
+
+# ---- the sharded launches: shards on one card --------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [1, 2, 3, 5])
+def test_sharded_kernel_equals_one_launch(shards, cuda_device):
+    """K1 once per shard, each for its own range of 5,001 simulations (not
+    a multiple of the shard count): bitwise one launch's int32 counts."""
+    pmat, scal, grid_log = rk.pack_inputs(make_sim_params(**field(20), device=cuda_device))
+    one = rk.race_counts(pmat, scal, grid_log, 30, 5_001, seed=4)
+    before = rk.race_counts_sharded.launches, rk.race_counts.launches
+    split = rk.race_counts_sharded(pmat, scal, grid_log, 30, 5_001, seed=4,
+                                   mesh=make_mesh(devices=[cuda_device] * shards))
+    torch.cuda.synchronize()
+    assert (rk.race_counts_sharded.launches, rk.race_counts.launches) == (
+        before[0] + 1, before[1] + shards)
+    assert split.dtype == torch.int32 and split.device.type == "cuda"
+    assert torch.equal(split, one)
+
+
+@pytest.mark.gpu
+def test_season_kernel_takes_a_simulation_offset(cuda_device):
+    """Race r of K2 at a simulation offset is K1 at race r's seed and the
+    same range, and the plain version's counts within the kernel bound."""
+    pmat_s, scal_s, grid_log_s, seeds = season_inputs(cuda_device, **WET_CHAOS)
+    laps, n, offset = [20, 15, 25], 3_000, 7_777
+    season = rk.season_counts(pmat_s, scal_s, grid_log_s, laps, n, seeds, sim_offset=offset)
+    plain = rk.season_counts_plain(pmat_s, scal_s, grid_log_s, laps, n, seeds, sim_offset=offset)
+    assert (season.long() - plain).abs().max().item() <= max(MAX_ABS_COUNT_ERR, MAX_ABS_PROB_ERR * n)
+    for r in range(3):
+        single = rk.race_counts(pmat_s[r], scal_s[r], grid_log_s[r], laps[r], n, seed=seeds[r],
+                                sim_offset=offset)
+        assert torch.equal(season[r], single), r
+    assert not torch.equal(season, rk.season_counts(pmat_s, scal_s, grid_log_s, laps, n, seeds))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [2, 3])
+def test_sharded_season_equals_one_launch(shards, cuda_device):
+    """K2 once per shard, each shard its own range of every race: bitwise
+    one season launch, on a ragged season padded to 80 drivers."""
+    widths, laps, n = (80, 64, 40, 20), [20, 15, 25, 12], 2_001
+    pmat_s, scal_s, grid_log_s, seeds = season_inputs(cuda_device, widths=widths)
+    one = rk.season_counts(pmat_s, scal_s, grid_log_s, laps, n, seeds)
+    before = rk.season_counts_sharded.launches, rk.season_counts.launches
+    split = rk.season_counts_sharded(pmat_s, scal_s, grid_log_s, laps, n, seeds,
+                                     mesh=make_mesh(devices=[cuda_device] * shards))
+    torch.cuda.synchronize()
+    assert (rk.season_counts_sharded.launches, rk.season_counts.launches) == (
+        before[0] + 1, before[1] + shards)
+    assert torch.equal(split, one)

@@ -600,22 +600,22 @@ def wide_weekend_phase(dev) -> dict[int, int]:
     predictor = predictor_mod.F1Predictor(
         cache_dir=SMOKE_CACHE / "wide_weekend", backend=SyntheticBackend(seed=2718), device=dev)
     engine_devices = []
-    real_engine = predictor_mod.run_monte_carlo
+    real_engine = predictor_mod.run_monte_carlo_sharded
 
     def engine_spy(params, *args, **kwargs):
         engine_devices.append(params.device.type)
         return real_engine(params, *args, **kwargs)
 
-    predictor_mod.run_monte_carlo = engine_spy
+    predictor_mod.run_monte_carlo_sharded = engine_spy
     launches = {}
     try:
         for d in WEEKEND_WIDTHS:
             plan = wide_plan(d, dev)
             engine_devices.clear()
-            engine.run_monte_carlo.calls = 0
+            engine.engine_counts.calls = 0
             result, wall, k1, k2 = run_counted(rk, lambda: predictor.assemble_result(
                 plan, predictor.simulate_plan(plan, WEEKEND_SIMS, seed=0)))
-            calls = engine.run_monte_carlo.calls
+            calls = engine.engine_counts.calls
             dist = np.array([[result["full_distributions"][dr].get(p + 1, 0.0) for p in range(d)]
                              for dr in plan.drivers])
             ok = (dist.shape == (d, d) and np.isfinite(dist).all()
@@ -630,7 +630,7 @@ def wide_weekend_phase(dev) -> dict[int, int]:
                 raise AssertionError(f"the {d}-driver weekend did not take its route")
             launches[d] = k1
     finally:
-        predictor_mod.run_monte_carlo = real_engine
+        predictor_mod.run_monte_carlo_sharded = real_engine
     return launches
 
 
@@ -847,11 +847,11 @@ def xla_cli_phase(main_dist, batched_2024) -> None:
     from monte_carlo_gp_torch.ops import race_kernel as rk
 
     t0 = time.perf_counter()
-    engine.run_monte_carlo.calls = engine.engine_counts.calls = 0
+    engine.engine_counts.calls = 0
     args = [*MAIN_ARGS, "--engine", "xla", "--cache-dir", str(SMOKE_CACHE / "xla_weekend")]
     args[args.index("--simulations") + 1] = str(XLA_WEEKEND_SIMS)
     (results, timers), wall, k1, k2 = run_counted(rk, lambda: run_cli(args))
-    calls = engine.run_monte_carlo.calls
+    calls = engine.engine_counts.calls
     drivers = list(results["full_distributions"])
     dist = np.array([[results["full_distributions"][d].get(p + 1, 0.0) for p in range(20)]
                      for d in drivers])
@@ -963,21 +963,18 @@ def main() -> None:
         f"({time.perf_counter() - t0:.1f} s)")
 
     # ---- the main path, through the CLI entry point --------------------------
-    rk.race_counts.launches = 0
-    t0 = time.perf_counter()
-    results, timers = run_cli(MAIN_ARGS)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = rk.race_counts.launches
+    (results, timers), wall, launches, k2 = run_counted(rk, lambda: run_cli(MAIN_ARGS))
+    sharded_launches = rk.race_counts_sharded.launches
     dist = np.array([[results["full_distributions"][d].get(p + 1, 0.0) for p in range(20)]
                      for d in plan.drivers])
     prep_s = timers.totals["prepare (data + Elo + features)"]
     sim_s = timers.totals["simulate (Monte Carlo)"]
-    log(f"[main path] launches {launches}; prepare {prep_s:.3f} s; simulate {sim_s:.3f} s "
-        f"({MAIN_SIMS / sim_s:,.0f} sims/s); wall {wall:.2f} s; "
+    log(f"[main path] K1 launches {launches} through {sharded_launches} call(s) of the sharded "
+        f"entry on the one-shard default mesh, K2 {k2}; prepare {prep_s:.3f} s; simulate "
+        f"{sim_s:.3f} s ({MAIN_SIMS / sim_s:,.0f} sims/s); wall {wall:.2f} s; "
         f"n_simulations_effective {results['n_simulations_effective']}")
-    if launches < 1:
-        raise AssertionError("the main path did not launch the race kernel")
+    if (launches, sharded_launches, k2) != (1, 1, 0):
+        raise AssertionError("the main path did not launch the race kernel once")
     if not (dist.shape == (20, 20) and np.isfinite(dist).all()
             and np.allclose(dist.sum(axis=1), 1.0, atol=1e-5)
             and results["n_simulations_effective"] == MAIN_SIMS):

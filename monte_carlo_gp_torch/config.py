@@ -224,6 +224,31 @@ class SimParams:
         )
 
 
+def pad_params(params: SimParams, d_max: int) -> SimParams:
+    """`params` with its driver axis padded to `d_max` slots, the layout of
+    a season's narrower fields (the season kernel's packing and the
+    lap-engine season): padding slots are inactive (they start retired and
+    classify after every real car), with zero pace, degradation, variance,
+    DNF rates and grid probabilities."""
+    extra = d_max - params.n_drivers
+    if extra == 0:
+        return params
+
+    def pad1(t):
+        return torch.nn.functional.pad(t, (0, extra))
+
+    return dataclasses.replace(
+        params,
+        grid_probs=torch.nn.functional.pad(params.grid_probs, (0, extra, 0, extra)),
+        base_pace=pad1(params.base_pace),
+        tire_deg=pad1(params.tire_deg),
+        variance=pad1(params.variance),
+        dnf_rate=pad1(params.dnf_rate),
+        team_dnf_rate=pad1(params.team_dnf_rate),
+        active=pad1(params.active),
+    )
+
+
 _FIELD_DTYPES = {
     "compound_optimal": torch.int32,
     "track_condition": torch.int32,

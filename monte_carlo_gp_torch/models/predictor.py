@@ -36,13 +36,8 @@ from monte_carlo_gp_torch.data.loader import F1DataLoader
 from monte_carlo_gp_torch.models.elo import F1EloSystem
 from monte_carlo_gp_torch.models.features import F1FeatureEngine, _driver_groups, _to_float
 from monte_carlo_gp_torch.models.safety import InsufficientDataError
-from monte_carlo_gp_torch.ops.engine import run_monte_carlo
-from monte_carlo_gp_torch.ops.race_kernel import (
-    MAX_DRIVERS,
-    run_monte_carlo_kernel,
-    run_monte_carlo_kernel_sharded,
-)
-from monte_carlo_gp_torch.parallel.mesh import Mesh, is_split, resolve_mesh, sharded_monte_carlo
+from monte_carlo_gp_torch.ops.race_kernel import MAX_DRIVERS, run_monte_carlo_kernel_sharded
+from monte_carlo_gp_torch.parallel.mesh import Mesh, resolve_mesh, run_monte_carlo_sharded
 from monte_carlo_gp_torch.utils.logging import log_event
 
 # FP-session fallback chains per prediction point.
@@ -404,21 +399,22 @@ class F1Predictor:
         means 0; `engine` and `mesh` override the predictor's for this call.
 
         "pallas" runs fields of up to MAX_DRIVERS (128) drivers on the race
-        kernel: `run_monte_carlo_kernel_sharded` when the mesh has more than
-        one shard or a process group is up, `run_monte_carlo_kernel`
-        otherwise (the JAX package's predictor.py:457-492). Its rank keys
-        pack rank*M+row (M = 32/64/128 by field size), which caps the driver
-        axis at 128; the reference simulator is size-generic
-        (simulation.py:59-100), so wider fields run on the lap engine, as
-        "xla" does, and log `engine_fallback_eager` (the JAX package's
-        `engine_fallback_xla`, predictor.py:444-456). The lap engine is split
-        the same way (`sharded_monte_carlo`). Every route gives bitwise the
-        same result for any mesh; a kernel error raises."""
+        kernel, `run_monte_carlo_kernel_sharded`: one launch per shard of
+        the mesh (the JAX package's predictor.py:457-492, which takes the
+        unsplit launch on one device only because `shard_map` needs a mesh
+        of several). Its rank keys pack rank*M+row (M = 32/64/128 by field
+        size), which caps the driver axis at 128; the reference simulator is
+        size-generic (simulation.py:59-100), so wider fields run on the lap
+        engine, as "xla" does, and log `engine_fallback_eager` (the JAX
+        package's `engine_fallback_xla`, predictor.py:444-456). The lap
+        engine is split the same way (`run_monte_carlo_sharded`, any
+        simulation count; the JAX package runs it unsplit, which gives the
+        same bits). Every route gives bitwise the same result for any mesh;
+        a kernel error raises."""
         n = int(n_simulations)
         seed = 0 if seed is None else seed
         engine = resolve_engine(engine) if engine else self.engine
         mesh = resolve_mesh(mesh if mesh is not None else self.mesh, self.device)
-        split = is_split(mesh)
         params = plan.params.to(self.device)
         if engine == "pallas" and params.n_drivers > MAX_DRIVERS:
             log_event(
@@ -428,14 +424,9 @@ class F1Predictor:
             )
             engine = "xla"
         if engine == "pallas":
-            if split:
-                probs = run_monte_carlo_kernel_sharded(params, seed, n, plan.total_laps, mesh)
-            else:
-                probs = run_monte_carlo_kernel(params, seed, n, plan.total_laps)
-        elif split:
-            probs = sharded_monte_carlo(params, seed, n, plan.total_laps, mesh)
+            probs = run_monte_carlo_kernel_sharded(params, seed, n, plan.total_laps, mesh)
         else:
-            probs = run_monte_carlo(params, seed, n, plan.total_laps)
+            probs = run_monte_carlo_sharded(params, seed, n, plan.total_laps, mesh)
         self.last_effective_sims = n
         return probs.cpu().numpy()
 

@@ -127,13 +127,8 @@ def run_monte_carlo(
     """(D, D) float32 [driver, position] finish probabilities of `n_sims`
     simulated races on the params' device: probs[driver, p] = P(driver
     finishes in position p + 1); the result does not depend on
-    `sims_per_block` (see `engine_counts`). Counts its calls in
-    `run_monte_carlo.calls`."""
+    `sims_per_block` (see `engine_counts`)."""
     if n_sims < 1:
         raise ValueError(f"n_sims must be >= 1, got {n_sims}")
     counts = engine_counts(params, seed, n_sims, race_laps, sims_per_block=sims_per_block)
-    run_monte_carlo.calls += 1
     return counts.to(torch.float32) / n_sims
-
-
-run_monte_carlo.calls = 0

@@ -31,12 +31,11 @@ import functools
 import torch
 
 from monte_carlo_gp_torch import config as cfg
-from monte_carlo_gp_torch.config import SimParams
+from monte_carlo_gp_torch.config import SimParams, pad_params
 from monte_carlo_gp_torch.ops import philox
 from monte_carlo_gp_torch.ops.ranking import inverse_permutation, rank_key, rank_tier
 from monte_carlo_gp_torch.parallel import distributed
-from monte_carlo_gp_torch.parallel.mesh import Mesh, local_shards, make_mesh
-from monte_carlo_gp_torch.parallel.sharded import pad_params
+from monte_carlo_gp_torch.parallel.mesh import Mesh, local_shards, resolve_mesh
 
 INF = 1e30
 
@@ -100,7 +99,7 @@ def pack_season_inputs(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
     """(pmat_s (R, D, 8), scal_s (R, 24), grid_log_s (R, D, D), D) for a
     season of R races on their params' device, D the widest field. Narrower
-    fields are padded by `parallel.sharded.pad_params`, as
+    fields are padded by `config.pad_params`, as
     `monte_carlo_gp_tpu.parallel.sharded.stack_params` pads them: padding
     slots are inactive (they start retired and classify after every real
     car), with zero pace, degradation, variance and DNF rates and zero grid
@@ -718,31 +717,31 @@ def _sharded_counts(
     launch, inputs: list[torch.Tensor], n_sims: int, mesh: Mesh, shape: tuple[int, ...]
 ) -> tuple[torch.Tensor, bool]:
     """(the `shape` counts of `n_sims` simulations split over `mesh` and the
-    process group, on the first input's device; whether a CUDA shard ran):
+    process group, on the first input's device; whether a kernel ran):
     `launch(*inputs on the shard's device, sim_offset, n)` runs one shard's
-    range. Every shard is launched, each on its device's current stream,
-    before any is waited for, so shards on several cards run at once; then
-    the shards' counts are summed on the inputs' device and all-reduced
-    across processes once. The sum is int32 on a mesh of CUDA devices (as
-    one launch gives) and int64 otherwise."""
+    range. Every shard is a device of the inputs' type (`local_shards`
+    raises otherwise): CUDA inputs launch the kernel on every shard, CPU
+    inputs run the plain version. Every shard is launched, each on its
+    device's current stream, before any is waited for, so shards on several
+    cards run at once; then the shards' counts are summed on the inputs'
+    device and all-reduced across processes once, int32 on CUDA (as one
+    launch gives) and int64 on the CPU."""
     home = inputs[0].device
     copies: dict[torch.device, list[torch.Tensor]] = {}
     parts = []
-    on_cuda = False
-    for dev, lo, hi in local_shards(mesh, n_sims):
+    for dev, lo, hi in local_shards(mesh, n_sims, home):
         if hi == lo:
             continue
-        on_cuda |= dev.type == "cuda"
         if dev not in copies:
             copies[dev] = [t.to(dev) for t in inputs]
         guard = torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
         with guard:
             parts.append(launch(*copies[dev], lo, hi - lo))
-    dtype = torch.int32 if all(d.type == "cuda" for d in mesh.devices) else torch.int64
+    dtype = torch.int32 if home.type == "cuda" else torch.int64
     total = torch.zeros(shape, dtype=dtype, device=home)
     for part in parts:
         total += part.to(home)
-    return distributed.all_reduce_counts(total), on_cuda
+    return distributed.all_reduce_counts(total), home.type == "cuda" and bool(parts)
 
 
 def race_counts_sharded(
@@ -755,19 +754,19 @@ def race_counts_sharded(
     mesh: Mesh | None = None,
 ) -> torch.Tensor:
     """(D, D) counts of simulations [0, n_sims) of the stream of `seed`,
-    split over `mesh` (default `make_mesh()`: every visible CUDA device, or
-    the CPU) and the process group: the counterpart of the JAX package's
-    sharded launch, `run_monte_carlo_pallas_sharded` (pallas_engine.py:1114).
-    Shard i of W runs `race_counts` on its device for its own range
-    (`parallel.mesh.shard_range`); a CUDA shard launches K1, a CPU shard
-    runs the plain version. The JAX package pads the tile grid to a
-    multiple of the device count and zeroes the pad tiles; here the ranges
-    split any n exactly. The counts are bitwise those of one `race_counts`
+    split over `mesh` (default: every visible CUDA device for CUDA inputs,
+    this process's own under a process group, or the CPU for CPU inputs;
+    `parallel.mesh.resolve_mesh`) and the process group: the counterpart
+    of the JAX package's sharded launch, `run_monte_carlo_pallas_sharded`
+    (pallas_engine.py:1114). Shard i of W runs `race_counts` on its device
+    for its own range (`parallel.mesh.shard_range`): K1 for CUDA inputs,
+    the plain version for CPU inputs; a mesh with a shard of the other type
+    raises. The JAX package pads the tile grid to a multiple of the device
+    count and zeroes the pad tiles; here the ranges split any n exactly. The counts are bitwise those of one `race_counts`
     call for any mesh and any process count: the Philox counter is the
     global simulation index and integer sums are exact. Counts in
     `race_counts_sharded.launches` the calls that launched K1."""
-    if mesh is None:
-        mesh = make_mesh()
+    mesh = resolve_mesh(mesh, pmat.device)
     d = _check_inputs(pmat, scal, grid_log, race_laps, n_sims, 0)
 
     def launch(pmat, scal, grid_log, lo, n):
@@ -792,17 +791,16 @@ def season_counts_sharded(
     mesh: Mesh | None = None,
 ) -> torch.Tensor:
     """(R, D, D) counts of a season with every race's simulations split
-    over `mesh` (default `make_mesh()`) and the process group: shard i runs
-    its own range [lo, hi) of every race in one `season_counts` call on its
-    device (K2 on a CUDA device), and the (R, D, D) counts are summed and
-    all-reduced once. The counterpart of the mesh branch of the JAX
+    over `mesh` (default as in `race_counts_sharded`) and the process
+    group: shard i runs its own range [lo, hi) of every race in one
+    `season_counts` call on its device (K2 for CUDA inputs), and the
+    (R, D, D) counts are summed and all-reduced once. The counterpart of the mesh branch of the JAX
     package's season launch (pallas_engine.py:962-983), which cuts its flat
     tile grid across race boundaries instead; cutting every race gives each
     shard 1/W of every race, and the counts are the same bit for bit: those
     of one `season_counts` call, for any mesh. Counts in
     `season_counts_sharded.launches` the calls that launched K2."""
-    if mesh is None:
-        mesh = make_mesh()
+    mesh = resolve_mesh(mesh, pmat_s.device)
     n_races, d, laps, seeds = _check_season_inputs(
         pmat_s, scal_s, grid_log_s, race_laps, n_sims_per_race, seeds
     )
@@ -832,8 +830,9 @@ def run_monte_carlo_season(
     season on the params' device, D the widest field (narrower fields are
     padded; their real drivers finish in positions 1..d) — the counterpart
     of `monte_carlo_gp_tpu.ops.pallas_engine.run_monte_carlo_pallas_season`,
-    with exactly `n_sims_per_race` simulations per race: one season launch,
-    or with a `mesh`, `season_counts_sharded` over it (bitwise the same).
+    with exactly `n_sims_per_race` simulations per race, split over `mesh`
+    by `season_counts_sharded` (one season launch per shard; bitwise the
+    same for any mesh).
 
     Race r is seeded with `philox.fold_in(season_seed, r)`, so it equals
     `run_monte_carlo_kernel` of race r's (padded) params at that seed."""
@@ -843,12 +842,9 @@ def run_monte_carlo_season(
         raise ValueError("race_laps_list must match params_list")
     pmat_s, scal_s, grid_log_s, _ = pack_season_inputs(params_list)
     seeds = [philox.fold_in(season_seed, r) for r in range(len(params_list))]
-    if mesh is None:
-        counts = season_counts(pmat_s, scal_s, grid_log_s, race_laps_list, n_sims_per_race, seeds)
-    else:
-        counts = season_counts_sharded(
-            pmat_s, scal_s, grid_log_s, race_laps_list, n_sims_per_race, seeds, mesh
-        )
+    counts = season_counts_sharded(
+        pmat_s, scal_s, grid_log_s, race_laps_list, n_sims_per_race, seeds, mesh
+    )
     return counts.to(torch.float32) / n_sims_per_race
 
 
@@ -870,9 +866,10 @@ def run_monte_carlo_kernel_sharded(
     params: SimParams, seed: int, n_sims: int, race_laps: int, mesh: Mesh | None = None
 ) -> torch.Tensor:
     """`run_monte_carlo_kernel` with the simulations split over `mesh`
-    (default `make_mesh()`) and the process group by `race_counts_sharded`:
-    bitwise the same probabilities, on the params' device — the counterpart
-    of `monte_carlo_gp_tpu.ops.pallas_engine.run_monte_carlo_pallas_sharded`."""
+    (default as in `race_counts_sharded`) and the process group by
+    `race_counts_sharded`: bitwise the same probabilities, on the params'
+    device — the counterpart of
+    `monte_carlo_gp_tpu.ops.pallas_engine.run_monte_carlo_pallas_sharded`."""
     if n_sims < 1:
         raise ValueError(f"n_sims must be >= 1, got {n_sims}")
     pmat, scal, grid_log = pack_inputs(params)

@@ -68,7 +68,7 @@ def initialize_distributed(
     if backend is None:
         backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
     if backend == "nccl":
-        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", process_id)))
+        select_device(process_id)
     dist.init_process_group(
         backend,
         init_method=f"tcp://{coordinator_address}",
@@ -77,6 +77,15 @@ def initialize_distributed(
         timeout=TIMEOUT,
     )
     return True
+
+
+def select_device(process_id: int) -> torch.device:
+    """Make CUDA device LOCAL_RANK (default: `process_id`) this process's
+    current device, as NCCL needs one card per process, and return it. The
+    default mesh under a process group is this device alone
+    (`parallel.mesh.default_devices`)."""
+    torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", process_id)))
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 def is_initialized() -> bool:

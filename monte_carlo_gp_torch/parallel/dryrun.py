@@ -6,9 +6,10 @@ where there is no jax.
         <engine> <device> [--backend gloo|nccl] [--sims N] [--laps L] [--seed S] \\
         [--params fields.npz]
 
-Each of `world` processes holds a mesh of one shard on `device` ("cpu" or
-"cuda"), joins the process group at `addr` ("host:port") and runs the split
-Monte Carlo: `engine` "pallas" is the race kernel
+Each of `world` processes joins the process group at `addr` ("host:port")
+and runs the split Monte Carlo on the default mesh, which under a group is
+the process's own device (`device`, "cpu" or "cuda": its current CUDA
+device): `engine` "pallas" is the race kernel
 (`run_monte_carlo_kernel_sharded`: K1 on CUDA, its plain version on the
 CPU), "xla" the lap engine (`sharded_monte_carlo`). Process 0 writes the
 (D, D) probabilities to `out.npy`, which are bitwise those of one process
@@ -89,12 +90,17 @@ def main(argv: list[str] | None = None) -> dict:
     from monte_carlo_gp_torch.ops import race_kernel as rk
     from monte_carlo_gp_torch.ops.engine import engine_counts
     from monte_carlo_gp_torch.parallel import distributed
-    from monte_carlo_gp_torch.parallel.mesh import make_mesh, sharded_monte_carlo
+    from monte_carlo_gp_torch.parallel.mesh import sharded_monte_carlo
 
     if args.device == "cuda":
         if not torch.cuda.is_available():
             sys.exit("dryrun: device cuda, but torch.cuda.is_available() is False")
-        device = torch.device("cuda", torch.cuda.current_device())
+        # under NCCL the card initialize_distributed will select, so the
+        # inputs lie on the device of the default mesh under the group
+        if args.backend == "gloo":
+            device = torch.device("cuda", torch.cuda.current_device())
+        else:
+            device = distributed.select_device(args.rank)
     else:
         device = torch.device("cpu")
     if args.params is None:
@@ -102,7 +108,6 @@ def main(argv: list[str] | None = None) -> dict:
     else:
         with np.load(args.params) as f:
             params = sim_params_from_numpy({k: f[k] for k in f.files}, device)
-    mesh = make_mesh(devices=[device])
 
     # build, load and touch everything the run needs before the rendezvous
     if args.engine == "pallas":
@@ -120,9 +125,9 @@ def main(argv: list[str] | None = None) -> dict:
         distributed.barrier("dryrun_built")
         t0 = time.perf_counter()
         if args.engine == "pallas":
-            probs = rk.run_monte_carlo_kernel_sharded(params, args.seed, args.sims, args.laps, mesh)
+            probs = rk.run_monte_carlo_kernel_sharded(params, args.seed, args.sims, args.laps)
         else:
-            probs = sharded_monte_carlo(params, args.seed, args.sims, args.laps, mesh)
+            probs = sharded_monte_carlo(params, args.seed, args.sims, args.laps)
         sync(device)
         run_s = time.perf_counter() - t0
 

@@ -48,12 +48,17 @@ class Mesh:
 
 def default_devices(device: str | torch.device | None = None) -> list[torch.device]:
     """Every visible CUDA device for a CUDA `device` (the default where one
-    is present), else the CPU alone."""
+    is present), else the CPU alone. Under a process group a process holds
+    only its own CUDA device, the current one (`initialize_distributed`
+    selects it from LOCAL_RANK under NCCL), so no card is run by several
+    processes at once."""
     if device is None:
         device = "cuda" if torch.cuda.is_available() else "cpu"
-    if torch.device(device).type == "cuda":
-        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    return [torch.device("cpu")]
+    if torch.device(device).type != "cuda":
+        return [torch.device("cpu")]
+    if distributed.is_initialized():
+        return [torch.device("cuda", torch.cuda.current_device())]
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
 def make_mesh(axis_sizes: dict[str, int] | None = None, devices=None) -> Mesh:
@@ -73,14 +78,9 @@ def make_mesh(axis_sizes: dict[str, int] | None = None, devices=None) -> Mesh:
 
 def resolve_mesh(mesh: Mesh | None, device: str | torch.device) -> Mesh:
     """`mesh`, or the default mesh of `device`'s kind: every visible CUDA
-    device for a CUDA device, the CPU for the CPU."""
+    device for a CUDA device (this process's own under a process group),
+    the CPU for the CPU."""
     return mesh if mesh is not None else make_mesh(devices=default_devices(device))
-
-
-def is_split(mesh: Mesh) -> bool:
-    """Whether runs on `mesh` are split: more than one shard here, or a
-    process group over several processes' meshes."""
-    return mesh.size > 1 or distributed.is_initialized()
 
 
 def shard_range(n_sims: int, n_shards: int, i: int) -> tuple[int, int]:
@@ -92,11 +92,22 @@ def shard_range(n_sims: int, n_shards: int, i: int) -> tuple[int, int]:
     return i * n_sims // n_shards, (i + 1) * n_sims // n_shards
 
 
-def local_shards(mesh: Mesh, n_sims: int) -> list[tuple[torch.device, int, int]]:
-    """(device, lo, hi) of this process's shards: with a process group up
-    the global shard index of local shard i is rank * mesh.size + i, out of
-    world_size * mesh.size shards (every process holds a mesh of the same
-    size)."""
+def local_shards(
+    mesh: Mesh, n_sims: int, device: torch.device
+) -> list[tuple[torch.device, int, int]]:
+    """(device, lo, hi) of this process's shards of a run whose inputs lie
+    on `device`: with a process group up the global shard index of local
+    shard i is rank * mesh.size + i, out of world_size * mesh.size shards
+    (every process holds a mesh of the same size). Raises ValueError for a
+    mesh with a shard of another device type than the inputs': a split runs
+    where its inputs lie, and never moves work between the card and the
+    CPU."""
+    others = sorted({str(d) for d in mesh.devices if d.type != device.type})
+    if others:
+        raise ValueError(
+            f"the inputs lie on {device}, but the mesh has shards on {', '.join(others)}: "
+            "every shard must be a device of the inputs' type"
+        )
     rank, world = distributed.world()
     n_shards = world * mesh.size
     return [
@@ -115,7 +126,7 @@ def sharded_engine_counts(
     once."""
     home = params_list[0].device
     total = None
-    for dev, lo, hi in local_shards(mesh, n_sims):
+    for dev, lo, hi in local_shards(mesh, n_sims, home):
         if hi == lo:
             continue
         part = torch.stack([
@@ -129,21 +140,31 @@ def sharded_engine_counts(
     return distributed.all_reduce_counts(total)
 
 
-def sharded_monte_carlo(
+def run_monte_carlo_sharded(
     params: SimParams, seed: int, n_sims: int, race_laps: int, mesh: Mesh | None = None
 ) -> torch.Tensor:
     """`ops.engine.run_monte_carlo` with the simulations split over `mesh`
-    (default `make_mesh()`): (D, D) float32 probabilities on the params'
-    device, bitwise equal to the unsplit run at the same seed. As in the JAX
-    package, n_sims must divide evenly over the shards."""
-    if mesh is None:
-        mesh = make_mesh()
+    (default: that of the params' device, see `resolve_mesh`) and the
+    process group: (D, D) float32 probabilities on the params' device,
+    bitwise equal to the unsplit run at the same seed for any n_sims (the
+    shard ranges split it exactly). The weekend's lap-engine route."""
     if n_sims < 1:
         raise ValueError(f"n_sims must be >= 1, got {n_sims}")
+    mesh = resolve_mesh(mesh, params.device)
+    counts = sharded_engine_counts([params], [seed], n_sims, [race_laps], mesh)[0]
+    return counts.to(torch.float32) / n_sims
+
+
+def sharded_monte_carlo(
+    params: SimParams, seed: int, n_sims: int, race_laps: int, mesh: Mesh | None = None
+) -> torch.Tensor:
+    """The JAX package's `sharded_monte_carlo`: `run_monte_carlo_sharded`,
+    with its rule that n_sims divides evenly over the shards (the mesh's
+    times the process count)."""
+    mesh = resolve_mesh(mesh, params.device)
     n_shards = distributed.world()[1] * mesh.size
     if n_sims % n_shards != 0:
         raise ValueError(
             f"n_sims={n_sims} must divide evenly over the mesh ({n_shards} shards)"
         )
-    counts = sharded_engine_counts([params], [seed], n_sims, [race_laps], mesh)[0]
-    return counts.to(torch.float32) / n_sims
+    return run_monte_carlo_sharded(params, seed, n_sims, race_laps, mesh)

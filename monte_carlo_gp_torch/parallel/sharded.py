@@ -2,11 +2,12 @@
 `monte_carlo_gp_tpu/parallel/sharded.py` (the JAX package's `engine="xla"`
 season path).
 
-Per-race `SimParams` are padded to the widest field (`pad_params`, which
-the season kernel's packing uses too), the races run one after another (the
-JAX package's `lax.map`), race r at seed `philox.fold_in(seed, r)`, and every
-race's simulations are split over the mesh (`parallel/mesh.py`), with one
-all-reduce of the (R, D, D) counts for the whole season.
+Per-race `SimParams` are padded to the widest field (`config.pad_params`,
+which the season kernel's packing uses too), the races run one after
+another (the JAX package's `lax.map`), race r at seed
+`philox.fold_in(seed, r)`, and every race's simulations are split over the
+mesh (`parallel/mesh.py`), with one all-reduce of the (R, D, D) counts for
+the whole season.
 """
 
 from __future__ import annotations
@@ -15,33 +16,9 @@ import dataclasses
 
 import torch
 
-from monte_carlo_gp_torch.config import SimParams
+from monte_carlo_gp_torch.config import SimParams, pad_params
 from monte_carlo_gp_torch.ops import philox
-from monte_carlo_gp_torch.parallel.mesh import Mesh, make_mesh, sharded_engine_counts
-
-
-def pad_params(params: SimParams, d_max: int) -> SimParams:
-    """`params` with its driver axis padded to `d_max` slots: padding slots
-    are inactive (they start retired and classify after every real car),
-    with zero pace, degradation, variance, DNF rates and grid
-    probabilities."""
-    extra = d_max - params.n_drivers
-    if extra == 0:
-        return params
-
-    def pad1(t):
-        return torch.nn.functional.pad(t, (0, extra))
-
-    return dataclasses.replace(
-        params,
-        grid_probs=torch.nn.functional.pad(params.grid_probs, (0, extra, 0, extra)),
-        base_pace=pad1(params.base_pace),
-        tire_deg=pad1(params.tire_deg),
-        variance=pad1(params.variance),
-        dnf_rate=pad1(params.dnf_rate),
-        team_dnf_rate=pad1(params.team_dnf_rate),
-        active=pad1(params.active),
-    )
+from monte_carlo_gp_torch.parallel.mesh import Mesh, resolve_mesh, sharded_engine_counts
 
 
 def stack_params(params_list: list[SimParams]) -> tuple[SimParams, int]:
@@ -70,13 +47,13 @@ def simulate_season_sharded(
     are padded; their real drivers finish in positions 1..d). Race r is
     seeded with `philox.fold_in(seed, r)`, so it equals
     `ops.engine.run_monte_carlo` of race r's padded params at that seed bit
-    for bit, for any mesh (default `make_mesh()`)."""
+    for bit, for any mesh (default: that of the first race's device, see
+    `parallel.mesh.resolve_mesh`)."""
     if len(laps_list) != len(params_list):
         raise ValueError("laps_list must match params_list")
     if n_sims < 1:
         raise ValueError(f"n_sims must be >= 1, got {n_sims}")
-    if mesh is None:
-        mesh = make_mesh()
+    mesh = resolve_mesh(mesh, params_list[0].device)
     d_max = max(p.n_drivers for p in params_list)
     padded = [pad_params(p, d_max) for p in params_list]
     seeds = [philox.fold_in(seed, r) for r in range(len(params_list))]

@@ -38,7 +38,7 @@ from monte_carlo_gp_torch import config as cfg
 from monte_carlo_gp_torch.ops import philox
 from monte_carlo_gp_torch.models.predictor import resolve_engine
 from monte_carlo_gp_torch.ops.race_kernel import MAX_DRIVERS, run_monte_carlo_season
-from monte_carlo_gp_torch.parallel.mesh import Mesh, is_split, resolve_mesh
+from monte_carlo_gp_torch.parallel.mesh import Mesh, resolve_mesh
 from monte_carlo_gp_torch.parallel.sharded import simulate_season_sharded
 from monte_carlo_gp_torch.utils.logging import log_event
 from monte_carlo_gp_torch.validate.metrics import (
@@ -413,8 +413,8 @@ def simulate_season_plans(
     package's (validate/backtest.py:412-484):
 
       * "pallas", widest field at most MAX_DRIVERS (128): one launch of the
-        season kernel, or with a mesh of several shards (or a process
-        group) one per shard; every array is (D, D), D the widest field;
+        season kernel per shard of the mesh; every array is (D, D), D the
+        widest field;
       * "pallas", a wider field: race by race through
         `predictor.simulate_plan`, so each race takes the race kernel or,
         above 128 drivers, the lap engine, and its array is its own field's
@@ -442,8 +442,7 @@ def simulate_season_plans(
         ]
     else:
         probs = run_monte_carlo_season(
-            [p.to(predictor.device) for p in params_list], laps, season_seed, n,
-            mesh=mesh if is_split(mesh) else None,
+            [p.to(predictor.device) for p in params_list], laps, season_seed, n, mesh=mesh
         )
     predictor.last_effective_sims = n
     return list(probs.cpu().numpy())

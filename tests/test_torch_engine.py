@@ -125,7 +125,7 @@ def test_simulate_plan_routes_by_field_size(d, caplog, monkeypatch):
     real_plain = rk.race_counts_plain
     monkeypatch.setattr(rk, "race_counts_plain",
                         lambda *a, **k: plain_calls.append(1) or real_plain(*a, **k))
-    calls = engine.run_monte_carlo.calls
+    calls = engine.engine_counts.calls
     p = bare_predictor()
     with caplog.at_level(logging.INFO, logger="mcgp"):
         probs = p.simulate_plan(wide_plan(d), 300, seed=0)
@@ -134,9 +134,9 @@ def test_simulate_plan_routes_by_field_size(d, caplog, monkeypatch):
     assert p.last_effective_sims == 300
     fell_back = "engine_fallback_eager" in caplog.text
     if d <= rk.MAX_DRIVERS:
-        assert (len(plain_calls), engine.run_monte_carlo.calls - calls, fell_back) == (1, 0, False)
+        assert (len(plain_calls), engine.engine_counts.calls - calls, fell_back) == (1, 0, False)
     else:
-        assert (len(plain_calls), engine.run_monte_carlo.calls - calls, fell_back) == (0, 1, True)
+        assert (len(plain_calls), engine.engine_counts.calls - calls, fell_back) == (0, 1, True)
         want = engine.run_monte_carlo(wide_plan(d).params, 0, 300, 10).numpy()
         np.testing.assert_array_equal(probs, want)
 
@@ -149,9 +149,9 @@ def test_season_with_a_150_driver_race_runs_race_by_race():
     season_seed, n = 77, 200
     plans = [wide_plan(20, 12), wide_plan(150, 8)]
     p = bare_predictor()
-    calls = engine.run_monte_carlo.calls
+    calls = engine.engine_counts.calls
     probs = tbt.simulate_season_plans(p, plans, season_seed, n)
-    assert engine.run_monte_carlo.calls - calls == 1
+    assert engine.engine_counts.calls - calls == 1
     assert [a.shape for a in probs] == [(20, 20), (150, 150)]
     want1 = engine.run_monte_carlo(plans[1].params, philox.fold_in(season_seed, 1), n, 8)
     np.testing.assert_array_equal(probs[1], want1.numpy())

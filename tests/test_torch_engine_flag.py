@@ -6,7 +6,7 @@ tests/test_pallas_engine.py::test_simulate_plan_uses_sharded_pallas_on_multidevi
 
 On the CPU the race kernels run their plain versions, so the routes are read
 from the calls of `race_counts_plain` and `season_counts_plain` and from the
-lap engine's counters (`run_monte_carlo.calls`, `engine_counts.calls`).
+lap engine's counter (`engine_counts.calls`, one per race and shard).
 Everything runs on a three-race synthetic world.
 """
 
@@ -48,12 +48,10 @@ def routes(monkeypatch):
             return _real(*a, **k)
 
         monkeypatch.setattr(rk, name, spy)
-    monkeypatch.setattr(engine.run_monte_carlo, "calls", 0)
     monkeypatch.setattr(engine.engine_counts, "calls", 0)
 
     def read():
-        return dict(calls, run_monte_carlo=engine.run_monte_carlo.calls,
-                    engine_counts=engine.engine_counts.calls)
+        return dict(calls, engine_counts=engine.engine_counts.calls)
 
     return read
 
@@ -77,9 +75,9 @@ def test_weekend_cli_engine_flag(engine_name, routes, tmp_path):
                               "--engine", engine_name, "--cache-dir", str(tmp_path)])
     got = routes()
     if engine_name == "xla":
-        assert (got["race_plain"], got["run_monte_carlo"]) == (0, 1)
+        assert (got["race_plain"], got["engine_counts"]) == (0, 1)
     else:
-        assert (got["race_plain"], got["run_monte_carlo"]) == (1, 0)
+        assert (got["race_plain"], got["engine_counts"]) == (1, 0)
     wins = results["win_probabilities"]
     assert abs(sum(wins.values()) - 1.0) < 1e-5 and results["n_simulations_effective"] == 512
 
@@ -101,7 +99,7 @@ def test_backtest_cli_engine_flag(engine_name, batched, routes, tmp_path):
         # the lap-engine season: each race once over the one-shard mesh
         assert (got["season_plain"], got["race_plain"], got["engine_counts"]) == (0, 0, N_EVENTS)
     else:
-        assert (got["race_plain"], got["run_monte_carlo"]) == (0, N_EVENTS)
+        assert (got["race_plain"], got["engine_counts"]) == (0, N_EVENTS)
 
 
 @pytest.mark.parametrize("engine_name", ["auto", "pallas", "xla"])
@@ -130,18 +128,30 @@ def weekend(tmp_path_factory):
 @pytest.mark.parametrize("engine_name", ["pallas", "xla"])
 def test_simulate_plan_on_a_split_mesh_takes_the_sharded_entry(engine_name, weekend, monkeypatch):
     """A mesh of two shards sends `simulate_plan` to the sharded entry of
-    its engine, and the probabilities are those of the unsplit run."""
+    its engine, with the mesh, and the probabilities are those of the
+    one-shard default mesh, which takes the same entry."""
     p, plan = weekend
-    entry = {"pallas": "run_monte_carlo_kernel_sharded", "xla": "sharded_monte_carlo"}[engine_name]
+    entry = {"pallas": "run_monte_carlo_kernel_sharded", "xla": "run_monte_carlo_sharded"}[engine_name]
     seen = []
     real = getattr(predictor_mod, entry)
-    monkeypatch.setattr(predictor_mod, entry, lambda *a, **k: seen.append(k) or real(*a, **k))
+    monkeypatch.setattr(predictor_mod, entry, lambda *a: seen.append(a[-1].size) or real(*a))
     split = p.simulate_plan(plan, 300, seed=1, engine=engine_name, mesh=make_mesh(devices=["cpu"] * 2))
-    assert len(seen) == 1
     whole = p.simulate_plan(plan, 300, seed=1, engine=engine_name)
-    assert len(seen) == 1  # the one-shard default mesh takes the single launch
+    assert seen == [2, 1]
     np.testing.assert_array_equal(split, whole)
     assert p.last_effective_sims == 300
+
+
+def test_wide_weekend_splits_any_simulation_count():
+    """A 150-driver weekend (the lap engine) at 1,001 simulations over a
+    mesh of 3 shards, which do not divide them: the split runs, and equals
+    the unsplit lap engine bit for bit."""
+    from test_torch_engine import bare_predictor, wide_plan
+
+    plan = wide_plan(150, 6)
+    probs = bare_predictor().simulate_plan(plan, 1001, seed=4, mesh=make_mesh(devices=["cpu"] * 3))
+    want = engine.run_monte_carlo(plan.params, 4, 1001, 6).numpy()
+    np.testing.assert_array_equal(probs, want)
 
 
 def test_season_on_a_split_mesh_takes_one_launch_per_shard(weekend, monkeypatch):
@@ -149,10 +159,11 @@ def test_season_on_a_split_mesh_takes_one_launch_per_shard(weekend, monkeypatch)
     plans = [plan, plan]
     seen = []
     real = rk.season_counts_sharded
-    monkeypatch.setattr(rk, "season_counts_sharded", lambda *a, **k: seen.append(k) or real(*a, **k))
+    monkeypatch.setattr(rk, "season_counts_sharded", lambda *a: seen.append(a[-1].size) or real(*a))
     split = tbt.simulate_season_plans(p, plans, 17, 250, mesh=make_mesh(devices=["cpu"] * 3))
     whole = tbt.simulate_season_plans(p, plans, 17, 250)
-    assert len(seen) == 1 and len(split) == 2
+    # the one-shard default mesh takes the same entry
+    assert seen == [3, 1] and len(split) == 2
     for a, b in zip(split, whole):
         np.testing.assert_array_equal(a, b)
     # the lap-engine season on the same mesh is split too, each race once

@@ -1,5 +1,6 @@
 """The port's multi-process path, after tests/test_multihost.py: N separate
-Python processes, each holding a mesh of one CPU shard, joined by
+Python processes, each on the default mesh under its group (its own CPU
+shard), joined by
 `torch.distributed` with gloo through `monte_carlo_gp_torch.parallel.dryrun`.
 The split Monte Carlo must give probabilities bitwise equal to the
 single-process run, on the race kernel (its plain version here) and on the
@@ -21,6 +22,7 @@ from monte_carlo_gp_torch.ops import engine
 from monte_carlo_gp_torch.ops import race_kernel as rk
 from monte_carlo_gp_torch.parallel import distributed
 from monte_carlo_gp_torch.parallel.dryrun import LAPS, N_SIMS, SEED, dryrun_params
+from monte_carlo_gp_torch.parallel.mesh import default_devices, resolve_mesh
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -51,6 +53,26 @@ def test_one_process_forms_no_group(monkeypatch):
     assert not distributed.is_initialized()
     with pytest.raises(ValueError, match="address"):
         distributed.initialize_distributed(num_processes=2, process_id=0)
+
+
+def test_default_mesh_under_a_group_is_the_process_device(monkeypatch):
+    """Under a process group each process's default CUDA mesh is its own
+    current device, not every visible card: W processes on W cards then run
+    one card each. Without a group it is every visible card. The card count
+    and the current device are faked, so this runs on the CPU in a gloo
+    world of one."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 2)
+    assert default_devices("cuda") == [torch.device("cuda", i) for i in range(4)]
+    assert distributed.initialize_distributed(f"127.0.0.1:{_free_port()}", 1, 0,
+                                              backend="gloo", device="cpu")
+    try:
+        assert default_devices("cuda") == [torch.device("cuda", 2)]
+        assert resolve_mesh(None, "cuda").devices == (torch.device("cuda", 2),)
+        assert resolve_mesh(None, "cpu").devices == (torch.device("cpu"),)
+    finally:
+        torch.distributed.destroy_process_group()
+    assert not distributed.is_initialized()
 
 
 def _run_workers(tmp_path, engine_name: str, n_procs: int = 4):

@@ -266,3 +266,17 @@ def test_sharded_season_equals_one_launch(shards, cuda_device):
     assert (rk.season_counts_sharded.launches, rk.season_counts.launches) == (
         before[0] + 1, before[1] + shards)
     assert torch.equal(split, one)
+
+
+@pytest.mark.gpu
+def test_sharded_entries_refuse_a_cpu_mesh_for_cuda_inputs(cuda_device):
+    """CUDA inputs on a mesh with a CPU shard raise: the split never moves
+    the kernel's work off the card."""
+    pmat, scal, grid_log = rk.pack_inputs(make_sim_params(**field(20), device=cuda_device))
+    mixed = make_mesh(devices=[cuda_device, "cpu"])
+    with pytest.raises(ValueError, match="every shard must be a device of the inputs' type"):
+        rk.race_counts_sharded(pmat, scal, grid_log, 10, 1_000, mesh=mixed)
+    pmat_s, scal_s, grid_log_s, seeds = season_inputs(cuda_device)
+    with pytest.raises(ValueError, match="every shard must be a device of the inputs' type"):
+        rk.season_counts_sharded(pmat_s, scal_s, grid_log_s, [10, 10, 10], 1_000, seeds,
+                                 mesh=make_mesh(devices=["cpu"]))

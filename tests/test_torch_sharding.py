@@ -25,7 +25,7 @@ from monte_carlo_gp_torch.ops import engine, philox
 from monte_carlo_gp_torch.ops import race_kernel as rk
 from monte_carlo_gp_torch.ops.philox import ZeroBits
 from monte_carlo_gp_torch.parallel import make_mesh, sharded_monte_carlo, simulate_season_sharded, stack_params
-from monte_carlo_gp_torch.parallel.mesh import local_shards, shard_range
+from monte_carlo_gp_torch.parallel.mesh import local_shards, run_monte_carlo_sharded, shard_range
 from monte_carlo_gp_tpu.config import make_sim_params as jax_make_sim_params
 from test_torch_race_kernel import stress_fields, zero_bits_fields
 
@@ -62,7 +62,8 @@ def test_shard_ranges_cover_every_simulation_once():
         assert ranges[0][0] == 0 and ranges[-1][1] == n
         assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
         assert max(hi - lo for lo, hi in ranges) - min(hi - lo for lo, hi in ranges) <= 1
-    assert [(lo, hi) for _, lo, hi in local_shards(cpu_mesh(3), 10)] == [(0, 3), (3, 6), (6, 10)]
+    assert [(lo, hi) for _, lo, hi in local_shards(cpu_mesh(3), 10, torch.device("cpu"))] == [
+        (0, 3), (3, 6), (6, 10)]
     with pytest.raises(ValueError):
         shard_range(10, 2, 2)
 
@@ -76,6 +77,37 @@ def test_sharded_matches_single_device(std_params):
 def test_sharded_rejects_uneven_split(std_params):
     with pytest.raises(ValueError, match="divide evenly"):
         sharded_monte_carlo(std_params, 0, 1001, 15, mesh=cpu_mesh(8))
+    # the weekend's route splits any count, bitwise the unsplit run
+    single = engine.run_monte_carlo(std_params, 0, 1001, 15)
+    split = run_monte_carlo_sharded(std_params, 0, 1001, 15, mesh=cpu_mesh(8))
+    torch.testing.assert_close(split, single, rtol=0, atol=0)
+
+
+CUDA_MESH = ["cuda:0", "cuda:0"]
+
+
+@pytest.mark.parametrize("entry", ["race_counts_sharded", "season_counts_sharded",
+                                   "run_monte_carlo_sharded", "simulate_season_sharded"])
+def test_split_refuses_shards_of_another_device_type(entry, std_params):
+    """A mesh naming CUDA devices for CPU inputs raises before any shard
+    runs, on every sharded entry: a split runs where its inputs lie (the
+    converse, CUDA inputs on a CPU mesh, is held on the card in
+    tests/test_torch_race_kernel_gpu.py)."""
+    mesh = make_mesh(devices=CUDA_MESH)
+    pmat, scal, grid_log = rk.pack_inputs(std_params)
+    pmat_s, scal_s, grid_log_s, _ = rk.pack_season_inputs([std_params])
+    run = {
+        "race_counts_sharded": lambda: rk.race_counts_sharded(
+            pmat, scal, grid_log, 10, 100, mesh=mesh),
+        "season_counts_sharded": lambda: rk.season_counts_sharded(
+            pmat_s, scal_s, grid_log_s, [10], 100, [1], mesh=mesh),
+        "run_monte_carlo_sharded": lambda: run_monte_carlo_sharded(std_params, 0, 100, 10, mesh),
+        "simulate_season_sharded": lambda: simulate_season_sharded([std_params], [10], 0, 100, mesh),
+    }[entry]
+    with pytest.raises(ValueError, match="every shard must be a device of the inputs' type"):
+        run()
+    with pytest.raises(ValueError, match="mesh has shards on cpu"):
+        local_shards(cpu_mesh(2), 100, torch.device("cuda", 0))
 
 
 def test_season_sharded_matches_per_race(std_params):

@@ -5,9 +5,13 @@ Run from the root of a checkout:
     python3 chip_smoke.py
 
 It builds the race kernels from `monte_carlo_gp_torch/csrc/` (K1, one race;
-K2, a season in one launch) and holds each against its plain PyTorch version,
-K1 also against the native C++ oracle. It drives the port's paths through
-their CLI entry points and checks that each went through its kernel:
+K2, a season in one launch), holds their counts bitwise against the golden
+file (`tests/data/torch_kernel_golden.npz`: K1 at 20, 40, 80 and 128
+drivers and K2 on two seasons, as the kernels gave them before the race
+body's redesign; also through the sharded entries) and each kernel against
+its plain PyTorch version, K1 also against the native C++ oracle. It drives
+the port's paths through their CLI entry points and checks that each went
+through its kernel:
 
   * the single-weekend prediction (Bahrain 2024, synthetic world, 20
     drivers, 57 laps, 1,048,576 simulations) through K1;
@@ -36,10 +40,11 @@ prints its seconds. The last line
 of standard output is one JSON object, {"ok": true, "device": {...}}; the
 line before it is the card's name and power limit, and the one before that
 lists the kernels, with their launches on their path, their error against
-the plain version, their times and their bounds (with a `wide` list of
-the same readings at each wide field, and the sharded entry's readings at
-each shard count). Without a CUDA device it exits non-zero and prints no
-result.
+the plain version, their times and their bounds, the golden check, their
+registers (ptxas) and the warps resident on an SM at their launch shape
+(with a `wide` list of the same readings at each wide field, and the
+sharded entry's readings at each shard count). Without a CUDA device it
+exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -289,6 +294,49 @@ def shard_mesh(dev, n_shards: int):
     return make_mesh(devices=[dev] * n_shards)
 
 
+def golden_phase(dev) -> None:
+    """K1 and K2 on the golden file's cases, bitwise equal to its counts, and
+    the sharded entries on two of them (K1 at 20 drivers over 3 shards, K2 on
+    the 2024 season over 2); prints the cells that differ."""
+    from monte_carlo_gp_torch.ops import race_kernel as rk
+    from monte_carlo_gp_torch.validate import golden
+
+    t0 = time.perf_counter()
+    want = golden.load()
+    n = int(want["sims"])
+    diffs = golden.check(dev, want)
+    _, (pmat, scal, grid_log, laps) = golden.case_inputs("k1_d20", dev, want)
+    split = rk.race_counts_sharded(pmat, scal, grid_log, laps, n, seed=golden.K1_SEED,
+                                   mesh=shard_mesh(dev, 3))
+    diffs["k1_d20 over 3 shards"] = int((split.cpu().numpy() != want["k1_d20"]).sum())
+    _, (pmat_s, scal_s, grid_log_s, laps, seeds) = golden.case_inputs("k2_season2024", dev, want)
+    split = rk.season_counts_sharded(pmat_s, scal_s, grid_log_s, laps, n, seeds,
+                                     mesh=shard_mesh(dev, 2))
+    diffs["k2_season2024 over 2 shards"] = int((split.cpu().numpy() != want["k2_season2024"]).sum())
+    log(f"[golden] {n} sims per race, cells that differ from the golden counts: "
+        + "; ".join(f"{k} {v}" for k, v in diffs.items())
+        + f"; phase {time.perf_counter() - t0:.1f} s")
+    if any(diffs.values()):
+        raise AssertionError("the kernels' counts depart from the golden file")
+
+
+def kernel_facts(dev, d: int, season: bool) -> dict:
+    """The registers and spills ptxas gave the kernel that runs d drivers
+    (K1, or K2 with `season`) and the warps that stay resident on an SM at
+    its default launch shape."""
+    from monte_carlo_gp_torch.ops import race_kernel as rk
+    from monte_carlo_gp_torch.profile_kernel import ptxas_report
+
+    report = ptxas_report(rk.build().with_suffix(".log").read_text())
+    name = f"{'season' if season else 'race'}_kernel<{-(-d // 32)}>"
+    warps, _ = rk.launch_shape(dev, d, season=season)
+    per_sm = rk.blocks_per_sm(dev.index or 0, d, warps, season)
+    facts = report[name]
+    return {"kernel": name, "registers": facts["registers"],
+            "spill_bytes": facts["spill_stores"] + facts["spill_loads"],
+            "resident_warps_per_sm": per_sm * warps}
+
+
 def season_phases(dev) -> tuple[list[int], dict, dict, dict]:
     """K2 against its plain version and against K1, then the season paths
     through their CLI entry points, then the timings at the season's shape,
@@ -464,6 +512,8 @@ def season_phases(dev) -> tuple[list[int], dict, dict, dict]:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        "golden": True,
+        **kernel_facts(dev, d, season=True),
     }, sharded, one
 
 
@@ -515,7 +565,8 @@ def wide_kernel_phases(dev) -> list[dict]:
         if not err_t <= MAX_ABS_PROB_ERR:
             raise AssertionError(f"K1 disagrees with its plain version at {d} drivers, {n} sims")
         rows.append({"d": d, "laps": WIDE_LAPS, "sims": n, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": max(err, err_t)})
+                     "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": max(err, err_t),
+                     **kernel_facts(dev, d, season=False)})
 
     # ---- K1 at 40 drivers against the native oracle --------------------------
     t0 = time.perf_counter()
@@ -584,7 +635,7 @@ def wide_season_phase(dev, laps: list[int]) -> dict:
         raise AssertionError("the wide season launch disagrees with its plain version or K1")
     return {"d": d, "widths": widths, "laps": laps, "launches": k2, "sims_per_race": n,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "max_abs_err": err}
+            "max_abs_err": err, **kernel_facts(dev, d, season=True)}
 
 
 def wide_weekend_phase(dev) -> dict[int, int]:
@@ -756,6 +807,8 @@ def sharded_kernel_phase(dev, predictor, plan, main_counts, plain_counts, plain_
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        "golden": True,
+        **kernel_facts(dev, d, season=False),
         "shards": rows,
     }
 
@@ -910,6 +963,9 @@ def main() -> None:
     log(f"[build] {lib.name} {how} in {time.perf_counter() - t0:.2f} s")
     log(lib.with_suffix(".log").read_text().strip())
 
+    # ---- the golden counts: bitwise what the kernels gave before -------------
+    golden_phase(dev)
+
     # ---- kernel vs plain on the same Philox stream ---------------------------
     params = std_params(dev)
     laps, n = 57, 65_536
@@ -1013,6 +1069,8 @@ def main() -> None:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        "golden": True,
+        **kernel_facts(dev, d, season=False),
     }
 
     t0 = time.perf_counter()

@@ -16,49 +16,87 @@
 // with --fmad=false so that no multiply-add is contracted) and draw from the
 // same Philox4x32-10 stream (ops/philox.py).
 //
-// What bounds it: not bytes. Per simulation it reads about 1 KB of
-// parameters (a (D, 8) matrix, 25 scalars, a (D, D) grid table, all cached)
-// and writes nothing but shared-memory atomics. The work is a few thousand
-// integer compares, shuffles, selects and Philox rounds per lap, so the
-// kernel is bound by instruction issue.
+// What bounds it: not bytes, and not float32 operations. Per simulation it
+// reads about 1 KB of parameters (a (D, 8) matrix, 24 scalars, a (D, D) grid
+// table: 2-68 KB per race, read once per block and cached) and writes
+// nothing but shared-memory atomics. A lap is the Philox rounds of seven
+// draws, one Box-Muller normal, a few hundred integer compares and selects,
+// and three ranks of the field, each an all-pairs count. So the kernel is
+// bound by instruction issue and by the latency of its dependent chains:
+// ranks, gathers and scans that cross the lanes of a warp.
 //
-// What the design does about it: one warp per simulation, and each lane
-// holds R = ceil(D / 32) cars (D <= 128), strided: car i sits in slot
-// i / 32 of lane i % 32, and in position space position p sits in slot
-// p / 32 of lane p % 32. R is a template parameter, so the per-car state
-// (~16 values per car) is a fully unrolled register array that stays in
-// registers for the whole race; R = 1 is the one-car-per-lane kernel. Every
-// O(D^2) rank of the TPU kernel becomes D shuffles, each compared against
-// the lane's R keys; a gather of car src reads slot src / 32 of lane
-// src % 32 (R shuffles and a select); the inverse permutation goes through
-// 32 R ints of shared memory per warp; the overtake chain's prefix max is a
-// __shfl_up_sync scan within each slot that carries each slot's maximum into
-// the next; the leader min and the pick of the leader's row are warp
-// reductions and ballots over the R slots. No lane ever waits on memory
-// inside the race. Warps loop over simulations with a grid stride and the
-// block's histogram lives in shared memory (64 KB at D = 128, so the
-// launches opt in to more than 48 KB of dynamic shared memory), so global
-// atomics run once per block, not once per simulation. Integer atomics keep
-// the counts bitwise deterministic, and the Philox counter is (global sim
-// index, draw block, row = driver index, or position index for the overtake
-// draws), so the counts do not depend on the launch shape.
+// What the design does about it. One warp runs one simulation, and each lane
+// holds R = ceil(D / 32) cars (D <= 128), strided: car i sits in slot i / 32
+// of lane i % 32, and in position space position p sits in slot p / 32 of
+// lane p % 32. R is a template parameter, so the per-car state (~16 values
+// per car) is a fully unrolled register array that stays in registers for
+// the whole race. Then:
+//
+//   * Ranks go through shared memory, not shuffles. Each warp owns five rows
+//     of 32 R words: the rank keys, three position-space rows and the DNF
+//     laps by car (below). A rank
+//     writes every car's key to the key row (padding slots INT_MAX, which
+//     exceeds every key), and each lane reads the row back as 16-byte
+//     broadcasts, ceil(D / 4) of them, counting against its own R keys in
+//     registers: at D = 20 five LDS.128 where a shuffle per car took twenty.
+//     In the same step every car scatters the values its position needs
+//     (time, pace, attack pace; or time and last lap) straight to the row
+//     index of its rank, so the inverse permutation, its dependent load and
+//     the gathers through it are gone, and the overtake pass's write-back
+//     reads its time at its rank the same way.
+//   * A pass that cannot swap does no work. An overtake pass is live only
+//     if the pass before it swapped, and a warp is one simulation, so the
+//     test is warp-uniform: a dead pass draws its uniform (the stream must
+//     not shift) and stops there. A live pass in which no car swaps stops
+//     after its ballot, before the prefix-max scan and the write-back: with
+//     no swap every time is written back unchanged, bit for bit. The swap
+//     flags travel as ballots, so the neighbour's flag is a bit of a mask.
+//   * More warps stay resident. Latency, not issue, was what the time
+//     followed (more resident warps ran faster at the same work), so R = 1
+//     is compiled for at most 64 registers (__launch_bounds__ of 1,024
+//     threads): four blocks of eight warps fit on an SM, where 80 registers
+//     fit three. To fit without spills, what never changes across
+//     simulations (the per-car constants) and what is read only at the end
+//     (each car's DNF lap) live in shared memory, each lane reading and
+//     writing only its own cars' words, so without bank conflicts. R = 4
+//     takes blocks of 12 warps (170 registers), where the 64 KB histogram
+//     leaves room for one block of 8.
+//   * The grid's per-slot argmin of the car index and its empty-column test
+//     are ballots, and the leader at the top of a lap is the one the last
+//     position update found (nothing moves in between), so those warp
+//     reductions are gone too; the classification's all-pairs counts read
+//     the field as broadcasts from the same rows.
+//
+// The arithmetic is the plain version's, unchanged: the same draws in the
+// same order (every row draws every time), and every float32 operation in
+// the same order; only where values are kept and how they move changed. The
+// counts are bitwise those of the kernels before this design
+// (tests/data/torch_kernel_golden.npz).
+//
+// What it does not use: the race has no matrix product, so wgmma and the
+// tensor cores have nothing to do; its inputs are 2-68 KB, read once per
+// block and cached, so TMA would save nothing. The block's histogram lives
+// in shared memory (64 KB at D = 128, so the launches opt in to more than
+// 48 KB of dynamic shared memory), so global atomics run once per block,
+// not once per simulation. Integer atomics keep the counts bitwise
+// deterministic, and the Philox counter is (global sim index, draw block,
+// row = driver index, or position index for the overtake draws), so the
+// counts do not depend on the launch shape.
 //
 // The rank keys pack (cumulative time quantized to 2^Q ULP) * M + row, with
 // the Pallas kernel's tiers by field size (pallas_engine.py:229-240):
 // (Q, M) = (2, 32) for D <= 32, (3, 64) for 33..64, (4, 128) for 65..128.
 // R fixes the tier: R = 1 -> (2, 32), R = 2 -> (3, 64), R = 3, 4 -> (4, 128).
 //
-// K2 is bound the same way, by instruction issue. Its grid is 2-D,
-// (blocks_per_race, R races): row r of blocks reads race r's parameters,
-// scalars, grid table, lap count and key words, and adds into race r's
-// histogram. A season's races are uneven (44 to 78 laps in the synthetic
-// 2024 season): each block's lap loop runs to its own race's lap count, so a
-// short race costs only its own laps, and the wrapper gives each race the
-// single-race launch's grid (four whole waves of the blocks that fit on the
-// SMs at once: 1,584 blocks of 8 warps on 132 SMs at D <= 32), so the
-// season holds many times more short blocks than the SMs take at once: the
-// SMs that finish a short race's blocks early take queued blocks of other
-// races instead of idling through a ragged tail of long blocks.
+// K2's grid is 2-D, (blocks_per_race, R races): row r of blocks reads race
+// r's parameters, scalars, grid table, lap count and key words, and adds into
+// race r's histogram. A season's races are uneven (44 to 78 laps in the
+// synthetic 2024 season): each block's lap loop runs to its own race's lap
+// count, so a short race costs only its own laps, and the wrapper gives each
+// race the single-race launch's grid (four whole waves of the blocks that fit
+// on the SMs at once), so the season holds many times more short blocks than
+// the SMs take at once: the SMs that finish a short race's blocks early take
+// queued blocks of other races instead of idling through a ragged tail.
 //
 // The sharded launch (pallas_engine.py::_sharded_pallas_probs, :1114, and
 // the mesh branch of _season_pallas_probs, :962-983) needs no third kernel:
@@ -77,12 +115,23 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxDrivers = 128;
 constexpr int kIKeyBase = 0x3E800000;  // int view of 0.25f
 constexpr int kDnfKey = 2100000000;
+constexpr int kPadKey = 0x7fffffff;    // above every rank key: padding never counts
+constexpr int kWarpRows = 5;           // rank keys, three position-space rows, DNF laps
 
 // The rank-key tier of a field held R cars per lane.
 template <int R>
 __host__ __device__ constexpr int q_shift() { return R == 1 ? 2 : (R == 2 ? 3 : 4); }
 template <int R>
 __host__ __device__ constexpr int row_mult() { return R == 1 ? 32 : (R == 2 ? 64 : 128); }
+
+// The most threads a block of R cars per lane takes, which bounds its
+// registers: 64 at R = 1 (1,024 threads), so 32 warps stay resident on an
+// SM; 128 at R = 2; 255 at R = 3; 170 at R = 4, so one block of 12 warps
+// fits (at D = 128 the 64 KB histogram keeps two blocks of 8 from fitting).
+template <int R>
+__host__ __device__ constexpr int max_threads() {
+  return R == 1 ? 1024 : (R == 2 ? 512 : (R == 3 ? 256 : 384));
+}
 
 // scalar pack layout (ops/race_kernel.py)
 enum {
@@ -92,6 +141,8 @@ enum {
 };
 // per-driver parameter columns
 enum { P_BASE, P_DEG, P_VAR, P_DNF, P_TEAMDNF, P_ACTIVE, N_PCOLS = 8 };
+// rows of the block's table of per-car constants (32 R by car index)
+enum { C_BASE, C_DEG, C_VAR, C_DNF, C_TEAMDNF, C_FACTOR, C_ACTIVE, N_CROWS };
 enum { SOFT, MEDIUM, HARD, INTERMEDIATE, WET };
 enum { DRY, DAMP, FULL_WET };
 
@@ -159,11 +210,6 @@ __device__ __forceinline__ float warp_min(float v) {
   for (int o = 16; o; o >>= 1) v = fminf(v, __shfl_xor_sync(kFull, v, o));
   return v;
 }
-__device__ __forceinline__ int warp_min_int(int v) {
-#pragma unroll
-  for (int o = 16; o; o >>= 1) v = min(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
 
 // max / min over every car of the warp (the R slots, then the lanes)
 template <int R>
@@ -187,55 +233,57 @@ __device__ __forceinline__ int rank_key(float cum, int row) {
   return ((ik - kIKeyBase) >> q_shift<R>()) * row_mult<R>() + row;
 }
 
+// f(q) for q = 0 .. ceil(d / 4) - 1: the 16-byte quads of a warp row that
+// hold cars 0 .. d - 1. Unrolled at R = 1 (at most 8); a loop above, where
+// unrolling every quad of 32 R cars would bloat the code past the
+// instruction cache.
+template <int R, typename F>
+__device__ __forceinline__ void for_each_quad(int d, F f) {
+  if constexpr (R == 1) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      if (4 * q >= d) break;
+      f(q);
+    }
+  } else {
+#pragma unroll 1
+    for (int q = 0; 4 * q < d; ++q) f(q);
+  }
+}
+
 // rank[j] = #{c < d : key_c < key[j]}: each of the lane's cars' rank among
-// unique keys; one shuffle per car of the field.
+// the field's unique keys. The keys go to the warp's key row (padding slots
+// kPadKey), and every lane reads the row back as 16-byte broadcasts and
+// counts against its own keys in registers. The leading __syncwarp keeps
+// the row until every lane is done with its last contents.
 template <int R>
-__device__ __forceinline__ void rank_of(const int (&key)[R], int d, int (&rank)[R]) {
+__device__ __forceinline__ void rank_of(int* keys, const int (&key)[R], const bool (&real)[R],
+                                        int lane, int d, int (&rank)[R]) {
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < R; ++j) keys[lane + 32 * j] = real[j] ? key[j] : kPadKey;
+  __syncwarp();
 #pragma unroll
   for (int j = 0; j < R; ++j) rank[j] = 0;
+  const int4* row = reinterpret_cast<const int4*>(keys);
+  for_each_quad<R>(d, [&](int q) {
+    const int4 k = row[q];
 #pragma unroll
-  for (int s = 0; s < R; ++s) {
-    const int n = min(32, d - 32 * s);
-    for (int l = 0; l < n; ++l) {
-      const int kl = __shfl_sync(kFull, key[s], l);
-#pragma unroll
-      for (int j = 0; j < R; ++j) rank[j] += kl < key[j];
-    }
-  }
-}
-
-// perm[rank] = car for the real cars; the caller reads perm, then syncs.
-template <int R>
-__device__ __forceinline__ void scatter_perm(volatile int* perm, const int (&rank)[R],
-                                             const bool (&real)[R], int lane) {
-  __syncwarp();
-#pragma unroll
-  for (int j = 0; j < R; ++j)
-    if (real[j]) perm[rank[j]] = lane + 32 * j;
-  __syncwarp();
-}
-
-// The value of car (or position) src of a per-slot array: slot src / 32 of
-// lane src % 32. Every lane may ask for another src.
-template <int R>
-__device__ __forceinline__ float gather(const float (&v)[R], int src) {
-  if constexpr (R == 1) {
-    return __shfl_sync(kFull, v[0], src);
-  } else {
-    float out = 0.0f;
-#pragma unroll
-    for (int s = 0; s < R; ++s) {
-      const float t = __shfl_sync(kFull, v[s], src & 31);
-      if ((src >> 5) == s) out = t;
-    }
-    return out;
-  }
+    for (int j = 0; j < R; ++j)
+      rank[j] += (k.x < key[j]) + (k.y < key[j]) + (k.z < key[j]) + (k.w < key[j]);
+  });
 }
 
 __device__ __forceinline__ int condition_compound(int track, int remaining) {
   const int dry = remaining > 30 ? HARD : (remaining > 15 ? MEDIUM : SOFT);
   return track == FULL_WET ? WET : (track == DAMP ? INTERMEDIATE : dry);
 }
+
+// Shared memory of a block: per warp kWarpRows rows of 32 R words, then the
+// block's N_CROWS rows of per-car constants, the scalars (32 words) and the
+// (d, d) histogram. The rows come first, so each row is 16-byte aligned for
+// the broadcast loads.
+__host__ __device__ constexpr int warp_words(int r) { return kWarpRows * 32 * r; }
 
 // One block's share of one race, the body of both launches: the block's
 // warps walk simulations sim_offset + [block * warps_per_block + warp, n_sims)
@@ -248,41 +296,51 @@ __device__ __forceinline__ void race_block(const float* __restrict__ pmat,
                                            int* __restrict__ counts, int d, int race_laps,
                                            uint32_t key0, uint32_t key1, uint32_t sim_offset,
                                            uint32_t n_sims, uint32_t block, uint32_t n_blocks) {
-  extern __shared__ int smem[];
-  int* hist = smem;                                         // d * d
-  float* scal = reinterpret_cast<float*>(smem + d * d);     // N_SCALARS
-  int* perms = smem + d * d + 32;                           // 32 R per warp
-
+  extern __shared__ __align__(16) int smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int warps_per_block = blockDim.x >> 5;
-  volatile int* perm = perms + warp * 32 * R;
+  constexpr int kRow = 32 * R;
+  int* keys = smem + warp * warp_words(R);
+  float* pos_a = reinterpret_cast<float*>(keys + kRow);
+  float* pos_b = pos_a + kRow;
+  float* pos_c = pos_b + kRow;
+  float* dnf_laps = pos_c + kRow;  // by car index
+  float* cst = reinterpret_cast<float*>(smem + warps_per_block * warp_words(R));
+  float* scal = cst + N_CROWS * kRow;
+  int* hist = reinterpret_cast<int*>(scal + 32);
 
   for (int i = threadIdx.x; i < d * d; i += blockDim.x) hist[i] = 0;
   if (threadIdx.x < N_SCALARS) scal[threadIdx.x] = scal_g[threadIdx.x];
-#pragma unroll
-  for (int j = 0; j < R; ++j) perm[lane + 32 * j] = 0;
+  for (int i = lane; i < warp_words(R); i += 32) keys[i] = 0;
+  // The per-car constants stay in shared memory, not registers: they never
+  // change across simulations, and each lane reads its own cars' (no bank
+  // conflict), so the body's registers fit in fewer.
+  for (int c = threadIdx.x; c < kRow; c += blockDim.x) {
+    const bool is_real = c < d;
+    const float* row = pmat + c * N_PCOLS;
+    const float deg = is_real ? row[P_DEG] : 0.0f;
+    cst[C_BASE * kRow + c] = is_real ? row[P_BASE] : 0.0f;
+    cst[C_DEG * kRow + c] = deg;
+    cst[C_VAR * kRow + c] = is_real ? row[P_VAR] : 0.0f;
+    cst[C_DNF * kRow + c] = is_real ? row[P_DNF] : 0.0f;
+    cst[C_TEAMDNF * kRow + c] = is_real ? row[P_TEAMDNF] : 0.0f;
+    cst[C_FACTOR * kRow + c] = deg > 0.0f ? deg / 0.05f : 1.0f;
+    cst[C_ACTIVE * kRow + c] = (is_real && row[P_ACTIVE] > 0.5f) ? 1.0f : 0.0f;
+  }
   __syncthreads();
 
-  // slot j of this lane: car (and position) lane + 32 j
+  // slot j of this lane: car (and position) lane + 32 j; `tenth` of slot s
+  // is 0.1 * the position lane + 32 s
   int car[R];
-  bool real[R], active[R];
-  float base_pace[R], driver_deg[R], variance[R], dnf_rate[R], team_dnf[R], factor[R];
-  float tenth[R];
+  bool real[R];
 #pragma unroll
   for (int j = 0; j < R; ++j) {
     car[j] = lane + 32 * j;
     real[j] = car[j] < d;
-    const float* row = pmat + car[j] * N_PCOLS;
-    base_pace[j] = real[j] ? row[P_BASE] : 0.0f;
-    driver_deg[j] = real[j] ? row[P_DEG] : 0.0f;
-    variance[j] = real[j] ? row[P_VAR] : 0.0f;
-    dnf_rate[j] = real[j] ? row[P_DNF] : 0.0f;
-    team_dnf[j] = real[j] ? row[P_TEAMDNF] : 0.0f;
-    active[j] = real[j] && row[P_ACTIVE] > 0.5f;
-    factor[j] = driver_deg[j] > 0.0f ? driver_deg[j] / 0.05f : 1.0f;
-    tenth[j] = (float)car[j] * 0.1f;
   }
+  auto car_const = [&](int col, int j) { return cst[col * kRow + lane + 32 * j]; };
+  auto tenth = [&](int s) { return (float)(lane + 32 * s) * 0.1f; };
   const int track = (int)scal[TRACK_COND];
   const float drs_delta = scal[DRS_DELTA];
   const float overtake_delta = scal[OVERTAKE_DELTA];
@@ -296,17 +354,20 @@ __device__ __forceinline__ void race_block(const float* __restrict__ pmat,
     int start_pos[R];
 #pragma unroll
     for (int j = 0; j < R; ++j) {
-      remaining[j] = active[j];
+      remaining[j] = car_const(C_ACTIVE, j) != 0.0f;
       start_pos[j] = d;
     }
     for (int pos = 0; pos < d; ++pos) {
       float masked[R], u[R], score[R];
+      bool live = false;
 #pragma unroll
       for (int j = 0; j < R; ++j) {
         const float col = real[j] ? grid_log[car[j] * d + pos] : -kInf;
         masked[j] = remaining[j] ? col : -kInf;
+        live = live || masked[j] > -kInf / 2;
       }
-      const bool col_empty = max_over<R>(masked) <= -kInf / 2;
+      // the column is empty when the maximum of `masked` is <= -kInf / 2
+      const bool col_empty = !__any_sync(kFull, live);
       rng.uniform(u);
 #pragma unroll
       for (int j = 0; j < R; ++j) {
@@ -315,14 +376,16 @@ __device__ __forceinline__ void race_block(const float* __restrict__ pmat,
         score[j] = remaining[j] ? logits + (-logf(-logf(uj))) : -kInf;
       }
       const float best = max_over<R>(score);
-      int cand = d;
+      // the lowest car index holding the best score: the first slot with
+      // one, its lowest lane
+      int first = d;
       bool any_left = false;
 #pragma unroll
-      for (int j = 0; j < R; ++j) {
-        if ((score[j] == best) && remaining[j]) cand = min(cand, car[j]);
-        any_left = any_left || remaining[j];
+      for (int s = R - 1; s >= 0; --s) {
+        const unsigned best_lanes = __ballot_sync(kFull, (score[s] == best) && remaining[s]);
+        if (best_lanes) first = 32 * s + __ffs(best_lanes) - 1;
+        any_left = any_left || remaining[s];
       }
-      const int first = warp_min_int(cand);
       const bool any_remaining = __any_sync(kFull, any_left);
 #pragma unroll
       for (int j = 0; j < R; ++j) {
@@ -334,7 +397,7 @@ __device__ __forceinline__ void race_block(const float* __restrict__ pmat,
 
     // ---- car init --------------------------------------------------------------
     int compound[R];
-    float age[R], fuel[R], cum[R], last_lap[R], behind[R], dnf_lap[R], laps_done[R];
+    float age[R], fuel[R], cum[R], last_lap[R], behind[R], laps_done[R];
     float ahead_ll[R];
     bool used_s[R], used_m[R], used_h[R], dnf[R], drs[R];
 #pragma unroll
@@ -346,15 +409,17 @@ __device__ __forceinline__ void race_block(const float* __restrict__ pmat,
       used_m[j] = compound[j] == MEDIUM;
       used_h[j] = compound[j] == HARD;
       fuel[j] = 110.0f;
-      cum[j] = last_lap[j] = behind[j] = dnf_lap[j] = laps_done[j] = ahead_ll[j] = 0.0f;
-      dnf[j] = !active[j];  // phantom cars (>= d) are retired from the start
+      cum[j] = last_lap[j] = behind[j] = laps_done[j] = ahead_ll[j] = 0.0f;
+      dnf_laps[car[j]] = 0.0f;
+      dnf[j] = car_const(C_ACTIVE, j) == 0.0f;  // phantom cars (>= d) are retired from the start
       drs[j] = false;
     }
     float drs_until = 0.0f;
 
     auto clean_lap_time = [&](int j, int comp, float noise) {
-      return base_pace[j] + age[j] * scal[CDEG0 + comp] * factor[j] - (110.0f - fuel[j]) * 0.03f +
-             scal[CPACE0 + comp] - (drs[j] ? drs_delta : 0.0f) + variance[j] * noise;
+      return car_const(C_BASE, j) + age[j] * scal[CDEG0 + comp] * car_const(C_FACTOR, j) -
+             (110.0f - fuel[j]) * 0.03f + scal[CPACE0 + comp] - (drs[j] ? drs_delta : 0.0f) +
+             car_const(C_VAR, j) * noise;
     };
 
     // ---- lap 1 -------------------------------------------------------------------
@@ -366,7 +431,7 @@ __device__ __forceinline__ void race_block(const float* __restrict__ pmat,
       rng.normal(start_noise);
 #pragma unroll
       for (int j = 0; j < R; ++j) {
-        const bool lap1_dnf = !dnf[j] && (u_dnf[j] < team_dnf[j] * 4.0f);
+        const bool lap1_dnf = !dnf[j] && (u_dnf[j] < car_const(C_TEAMDNF, j) * 4.0f);
         const float base_lap = clean_lap_time(j, compound[j], lap_noise[j]);
         const float position = (float)start_pos[j] + 1.0f;
         const float sigma = fminf(1.5f, 0.5f + position * 0.1f);
@@ -375,7 +440,7 @@ __device__ __forceinline__ void race_block(const float* __restrict__ pmat,
         const float lap_time = base_lap - start_delta * 0.5f;
         const bool alive = !dnf[j] && !lap1_dnf;
         dnf[j] = dnf[j] || lap1_dnf;
-        if (lap1_dnf) dnf_lap[j] = 1.0f;
+        if (lap1_dnf) dnf_laps[car[j]] = 1.0f;
         if (alive) {
           cum[j] = cum[j] + lap_time;
           age[j] = age[j] + 1.0f;
@@ -386,6 +451,8 @@ __device__ __forceinline__ void race_block(const float* __restrict__ pmat,
     float timing[R];
 #pragma unroll
     for (int j = 0; j < R; ++j) timing[j] = dnf[j] ? kInf : cum[j];
+    // the leader stays the last position update's until the next one: the
+    // top of a lap changes neither cum nor dnf before race control reads it
     float leader = min_over<R>(timing);
     int urank[R];
     {
@@ -395,7 +462,7 @@ __device__ __forceinline__ void race_block(const float* __restrict__ pmat,
         if (!dnf[j]) behind[j] = cum[j] - leader;
         key[j] = dnf[j] ? kDnfKey + car[j] : rank_key<R>(cum[j], car[j]);
       }
-      rank_of<R>(key, d, urank);
+      rank_of<R>(keys, key, real, lane, d, urank);
     }
 
     // ---- laps 2..race_laps -----------------------------------------------------------
@@ -415,10 +482,8 @@ __device__ __forceinline__ void race_block(const float* __restrict__ pmat,
       const bool is_vsc = !is_red && !is_sc && u_vsc < scal[VSC_P];
       const bool vsc_refund = is_vsc && u_ref < 0.3f;
 
-      // the rank carried from the previous position update is this lap's rank
-#pragma unroll
-      for (int j = 0; j < R; ++j) timing[j] = dnf[j] ? kInf : cum[j];
-      leader = min_over<R>(timing);
+      // the rank and the leader carried from the previous position update
+      // are this lap's
       float leader_laps = 0.0f;
 #pragma unroll
       for (int s = 0; s < R; ++s) {
@@ -456,14 +521,14 @@ __device__ __forceinline__ void race_block(const float* __restrict__ pmat,
       rng.normal(lap_noise);
 #pragma unroll
       for (int j = 0; j < R; ++j) {
-        const bool new_dnf = act[j] && (u_d[j] < dnf_rate[j]);
+        const bool new_dnf = act[j] && (u_d[j] < car_const(C_DNF, j));
         const bool alive = act[j] && !new_dnf;
         const float clean = clean_lap_time(j, compound[j], lap_noise[j]);
         const bool in_dirty =
             behind[j] > 0.0f && ahead_ll[j] > 0.0f && behind[j] < scal[DIRTY_THRESH];
         const float lap_time = in_dirty ? fmaxf(clean + scal[DIRTY_PEN], ahead_ll[j]) : clean;
         dnf[j] = dnf[j] || new_dnf;
-        if (new_dnf) dnf_lap[j] = lap_f;
+        if (new_dnf) dnf_laps[car[j]] = lap_f;
         if (alive) {
           cum[j] = cum[j] + lap_time;
           last_lap[j] = lap_time;
@@ -474,9 +539,9 @@ __device__ __forceinline__ void race_block(const float* __restrict__ pmat,
 
         // pit stops and the two-dry-compound rule
         const float opt = scal[COPT0 + compound[j]];
-        const float opt_adj = driver_deg[j] > 0.05f
-                                  ? floorf(opt * 0.85f)
-                                  : (driver_deg[j] < 0.02f ? floorf(opt * 1.1f) : opt);
+        const float deg = car_const(C_DEG, j);
+        const float opt_adj =
+            deg > 0.05f ? floorf(opt * 0.85f) : (deg < 0.02f ? floorf(opt * 1.1f) : opt);
         if (!dnf[j] && age[j] > opt_adj && remaining_laps > 5) {
           int target = condition_compound(track, remaining_laps);
           const int n_used_dry = (int)used_s[j] + (int)used_m[j] + (int)used_h[j];
@@ -494,50 +559,59 @@ __device__ __forceinline__ void race_block(const float* __restrict__ pmat,
       }
 
       // overtakes: 3 passes in position space (slot s of lane l = position
-      // l + 32 s)
+      // l + 32 s). pos_a holds the times by position, pos_b the paces,
+      // pos_c the attack paces.
       float pace[R], att[R];
 #pragma unroll
       for (int j = 0; j < R; ++j) {
-        pace[j] = dnf[j] ? __int_as_float(0x7fc00000) : base_pace[j] + age[j] * driver_deg[j];
+        pace[j] = dnf[j] ? __int_as_float(0x7fc00000) : car_const(C_BASE, j) + age[j] * car_const(C_DEG, j);
         att[j] = pace[j] - (drs[j] ? drs_delta : 0.0f);
       }
       bool pass_active = true;
       const int n_passes = d > 1 ? 3 : 0;
       for (int pass = 0; pass < n_passes; ++pass) {
+        float u[R];
+        rng.uniform(u);
+        // a pass after one without a swap cannot swap: it leaves every time
+        // as it is, and only its draw must be taken
+        if (!pass_active) continue;
         int okey[R], orank[R];
 #pragma unroll
         for (int j = 0; j < R; ++j) okey[j] = rank_key<R>(cum[j], car[j]);
-        rank_of<R>(okey, d, orank);
-        scatter_perm<R>(perm, orank, real, lane);
-        float r_cum[R], r_pace[R], r_att[R];
+        rank_of<R>(keys, okey, real, lane, d, orank);
 #pragma unroll
-        for (int s = 0; s < R; ++s) {
-          const int inv = perm[lane + 32 * s];
-          r_cum[s] = gather<R>(cum, inv);
-          r_pace[s] = gather<R>(pace, inv);
-          r_att[s] = gather<R>(att, inv);
-        }
-        float u[R];
-        rng.uniform(u);
-        bool swap[R];
-        float z[R];
-#pragma unroll
-        for (int s = 0; s < R; ++s) {
-          // attacker at p vs the car at p-1 (NaN pace -> no swap); position
-          // 32 s - 1 is lane 31 of the slot before
-          float ahead_pace = __shfl_up_sync(kFull, r_pace[s], 1);
-          if (s > 0) {
-            const float last = __shfl_sync(kFull, r_pace[s > 0 ? s - 1 : 0], 31);
-            if (lane == 0) ahead_pace = last;
+        for (int j = 0; j < R; ++j) {
+          if (real[j]) {
+            pos_a[orank[j]] = cum[j];
+            pos_b[orank[j]] = pace[j];
+            pos_c[orank[j]] = att[j];
           }
-          const float delta = ahead_pace - r_att[s];
-          const float prob = fminf(0.5f, delta * 0.5f);
-          const int p = lane + 32 * s;
-          swap[s] = p >= 1 && p < d && delta > overtake_delta && u[s] < prob && pass_active;
-          z[s] = swap[s] ? -kInf : r_cum[s] + tenth[s];
         }
+        __syncwarp();
+        float r_cum[R];
+        bool swap[R];
+        unsigned swaps[R];
+        unsigned any_swap = 0u;
+#pragma unroll
+        for (int s = 0; s < R; ++s) {
+          // attacker at p vs the car at p-1 (NaN pace -> no swap)
+          const int p = lane + 32 * s;
+          r_cum[s] = pos_a[p];
+          const float ahead_pace = pos_b[p >= 1 ? p - 1 : 0];
+          const float delta = ahead_pace - pos_c[p];
+          const float prob = fminf(0.5f, delta * 0.5f);
+          swap[s] = p >= 1 && p < d && delta > overtake_delta && u[s] < prob;
+          swaps[s] = __ballot_sync(kFull, swap[s]);
+          any_swap |= swaps[s];
+        }
+        pass_active = any_swap != 0u;
+        // no swap: the chain below gives every position its own time back
+        if (!pass_active) continue;
         // closed form of the sequential time-rewrite chain: prefix max of z,
         // a scan within each slot that carries the slot before's maximum
+        float z[R];
+#pragma unroll
+        for (int s = 0; s < R; ++s) z[s] = swap[s] ? -kInf : r_cum[s] + tenth(s);
         const int span = R == 1 ? d : 32;
 #pragma unroll
         for (int s = 0; s < R; ++s) {
@@ -547,85 +621,93 @@ __device__ __forceinline__ void race_block(const float* __restrict__ pmat,
           }
           if (s > 0) z[s] = fmaxf(z[s], __shfl_sync(kFull, z[s > 0 ? s - 1 : 0], 31));
         }
-        float fin[R];
-        bool any_swap_lane = false;
 #pragma unroll
         for (int s = 0; s < R; ++s) {
-          const float a = swap[s] ? fmaxf(0.1f, z[s] - tenth[s]) : r_cum[s];
-          bool next = __shfl_down_sync(kFull, (int)swap[s], 1);
-          if (s + 1 < R) {
-            const bool next_slot = __shfl_sync(kFull, (int)swap[s + 1 < R ? s + 1 : s], 0);
-            if (lane == 31) next = next_slot;
-          }
+          const float a = swap[s] ? fmaxf(0.1f, z[s] - tenth(s)) : r_cum[s];
+          // the swap at position p + 1: this slot's next lane, or lane 0 of
+          // the next slot
+          const unsigned next = lane < 31 ? (swaps[s] >> (lane + 1)) & 1u
+                                          : (s + 1 < R ? swaps[s + 1 < R ? s + 1 : s] & 1u : 0u);
           const bool swap_next = next && lane + 32 * s + 1 < d;
-          fin[s] = swap_next ? fmaxf(0.1f, a - 0.1f) + 0.3f : a;
-          any_swap_lane = any_swap_lane || swap[s];
+          pos_a[lane + 32 * s] = swap_next ? fmaxf(0.1f, a - 0.1f) + 0.3f : a;
         }
+        __syncwarp();
         // write back: each car reads its position
 #pragma unroll
-        for (int j = 0; j < R; ++j) cum[j] = gather<R>(fin, orank[j]);
-        const bool any_swap = __any_sync(kFull, any_swap_lane);
-        pass_active = pass_active && any_swap;
+        for (int j = 0; j < R; ++j) cum[j] = pos_a[orank[j]];
       }
 
-      // position / DRS update
+      // position / DRS update: pos_a holds the times by position, pos_b the
+      // last laps
       {
         int key[R];
 #pragma unroll
         for (int j = 0; j < R; ++j) key[j] = dnf[j] ? kDnfKey + car[j] : rank_key<R>(cum[j], car[j]);
-        rank_of<R>(key, d, urank);
+        rank_of<R>(keys, key, real, lane, d, urank);
       }
 #pragma unroll
       for (int j = 0; j < R; ++j) timing[j] = dnf[j] ? kInf : cum[j];
       leader = min_over<R>(timing);
 #pragma unroll
-      for (int j = 0; j < R; ++j)
-        if (!dnf[j]) behind[j] = cum[j] - leader;
-      scatter_perm<R>(perm, urank, real, lane);
-      int src[R];
-      bool has_ahead[R];
-#pragma unroll
       for (int j = 0; j < R; ++j) {
-        has_ahead[j] = real[j] && urank[j] > 0;
-        src[j] = has_ahead[j] ? perm[urank[j] - 1] : car[j];
+        if (!dnf[j]) behind[j] = cum[j] - leader;
+        if (real[j]) {
+          pos_a[urank[j]] = cum[j];
+          pos_b[urank[j]] = last_lap[j];
+        }
       }
       __syncwarp();
 #pragma unroll
       for (int j = 0; j < R; ++j) {
-        const float cum_ahead = gather<R>(cum, src[j]);
-        const float ll_ahead = gather<R>(last_lap, src[j]);
-        const float ahead_cum = has_ahead[j] ? cum_ahead : 0.0f;
-        ahead_ll[j] = has_ahead[j] ? ll_ahead : 0.0f;
+        const bool has_ahead = real[j] && urank[j] > 0;
+        const int ahead = has_ahead ? urank[j] - 1 : 0;
+        const float ahead_cum = has_ahead ? pos_a[ahead] : 0.0f;
+        ahead_ll[j] = has_ahead ? pos_b[ahead] : 0.0f;
         const float gap_ahead = cum[j] - ahead_cum;
-        drs[j] = lap_f > 2.0f && !(lap_f <= drs_until) && has_ahead[j] && gap_ahead < 1.0f && !dnf[j];
+        drs[j] = lap_f > 2.0f && !(lap_f <= drs_until) && has_ahead && gap_ahead < 1.0f && !dnf[j];
       }
     }
 
     // ---- classification: (dnf, dnf_lap desc, cum desc, row) ----------------------
-    int active_rank[R], dnf_rank[R];
+    // every car's timing, DNF lap, time and DNF flag go to the warp's rows by
+    // car index; padding slots hold timing kInf and no DNF flag, so they
+    // never count against a real car
+    float* by_timing = reinterpret_cast<float*>(keys);
+    __syncwarp();
 #pragma unroll
     for (int j = 0; j < R; ++j) {
       timing[j] = dnf[j] ? kInf : cum[j];
+      by_timing[car[j]] = timing[j];
+      pos_b[car[j]] = cum[j];
+      pos_c[car[j]] = (real[j] && dnf[j]) ? 1.0f : 0.0f;
+    }
+    __syncwarp();
+    int active_rank[R], dnf_rank[R];
+    float dnf_lap[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
       active_rank[j] = dnf_rank[j] = 0;
+      dnf_lap[j] = dnf_laps[car[j]];
     }
+    auto count = [&](float kc, float lap_c, float cum_c, float dnf_c, int c) {
 #pragma unroll
-    for (int s = 0; s < R; ++s) {
-      const int n = min(32, d - 32 * s);
-      for (int l = 0; l < n; ++l) {
-        const int c = 32 * s + l;
-        const float kc = __shfl_sync(kFull, timing[s], l);
-        const float lap_c = __shfl_sync(kFull, dnf_lap[s], l);
-        const float cum_c = __shfl_sync(kFull, cum[s], l);
-        const bool dnf_c = __shfl_sync(kFull, (int)dnf[s], l);
-#pragma unroll
-        for (int j = 0; j < R; ++j) {
-          active_rank[j] += (kc < timing[j]) || (kc == timing[j] && c < car[j]);
-          const bool greater = lap_c > dnf_lap[j] ||
-                               (lap_c == dnf_lap[j] && (cum_c > cum[j] || (cum_c == cum[j] && c < car[j])));
-          dnf_rank[j] += greater && dnf_c && dnf[j];
-        }
+      for (int j = 0; j < R; ++j) {
+        active_rank[j] += (kc < timing[j]) || (kc == timing[j] && c < car[j]);
+        const bool greater = lap_c > dnf_lap[j] ||
+                             (lap_c == dnf_lap[j] && (cum_c > cum[j] || (cum_c == cum[j] && c < car[j])));
+        dnf_rank[j] += greater && dnf_c != 0.0f && dnf[j];
       }
-    }
+    };
+    for_each_quad<R>(d, [&](int q) {
+      const float4 kt = reinterpret_cast<const float4*>(by_timing)[q];
+      const float4 kl = reinterpret_cast<const float4*>(dnf_laps)[q];
+      const float4 kc = reinterpret_cast<const float4*>(pos_b)[q];
+      const float4 kd = reinterpret_cast<const float4*>(pos_c)[q];
+      count(kt.x, kl.x, kc.x, kd.x, 4 * q);
+      count(kt.y, kl.y, kc.y, kd.y, 4 * q + 1);
+      count(kt.z, kl.z, kc.z, kd.z, 4 * q + 2);
+      count(kt.w, kl.w, kc.w, kd.w, 4 * q + 3);
+    });
     int n_active = 0;
 #pragma unroll
     for (int s = 0; s < R; ++s) n_active += __popc(__ballot_sync(kFull, real[s] && !dnf[s]));
@@ -645,10 +727,11 @@ __device__ __forceinline__ void race_block(const float* __restrict__ pmat,
 
 // K1: one race, a 1-D grid over its simulations.
 template <int R>
-__global__ void race_kernel(const float* __restrict__ pmat, const float* __restrict__ scal_g,
-                            const float* __restrict__ grid_log, int* __restrict__ counts,
-                            int d, int race_laps, uint32_t key0, uint32_t key1,
-                            uint32_t sim_offset, uint32_t n_sims) {
+__global__ void __launch_bounds__(max_threads<R>())
+    race_kernel(const float* __restrict__ pmat, const float* __restrict__ scal_g,
+                const float* __restrict__ grid_log, int* __restrict__ counts, int d,
+                int race_laps, uint32_t key0, uint32_t key1, uint32_t sim_offset,
+                uint32_t n_sims) {
   race_block<R>(pmat, scal_g, grid_log, counts, d, race_laps, key0, key1, sim_offset, n_sims,
                 blockIdx.x, gridDim.x);
 }
@@ -659,21 +742,20 @@ __global__ void race_kernel(const float* __restrict__ pmat, const float* __restr
 // seed and the same simulation range bit for bit. A shard of a split season
 // (ops/race_kernel.season_counts_sharded) runs its own range of every race.
 template <int R>
-__global__ void season_kernel(const float* __restrict__ pmat_s,
-                              const float* __restrict__ scal_s,
-                              const float* __restrict__ grid_log_s,
-                              const int* __restrict__ race_laps,
-                              const uint32_t* __restrict__ keys, int* __restrict__ counts,
-                              int d, uint32_t sim_offset, uint32_t n_sims) {
+__global__ void __launch_bounds__(max_threads<R>())
+    season_kernel(const float* __restrict__ pmat_s, const float* __restrict__ scal_s,
+                  const float* __restrict__ grid_log_s, const int* __restrict__ race_laps,
+                  const uint32_t* __restrict__ keys, int* __restrict__ counts, int d,
+                  uint32_t sim_offset, uint32_t n_sims) {
   const int r = blockIdx.y;
   race_block<R>(pmat_s + (size_t)r * d * N_PCOLS, scal_s + (size_t)r * N_SCALARS,
                 grid_log_s + (size_t)r * d * d, counts + (size_t)r * d * d, d, race_laps[r],
                 keys[2 * r], keys[2 * r + 1], sim_offset, n_sims, blockIdx.x, gridDim.x);
 }
 
-// histogram, scalars, and 32 R ints of inverse permutation per warp
+// the warps' rows, the per-car constants, the scalars and the histogram
 size_t shared_bytes(int d, int warps_per_block, int r) {
-  return (size_t)(d * d + 32 + 32 * r * warps_per_block) * sizeof(int);
+  return (size_t)(warp_words(r) * warps_per_block + N_CROWS * 32 * r + 32 + d * d) * sizeof(int);
 }
 
 // More than 48 KB of dynamic shared memory (the histogram alone is 64 KB at
@@ -710,8 +792,13 @@ int launch_season(const float* pmat_s, const float* scal_s, const float* grid_lo
   return (int)cudaGetLastError();
 }
 
+// 0 for a block larger than the kernel's __launch_bounds__: the occupancy
+// calculator counts registers and shared memory only, and such a launch fails.
 template <typename Kernel>
 int blocks_per_sm(Kernel kernel, size_t smem, int warps_per_block) {
+  cudaFuncAttributes attr;
+  if (cudaFuncGetAttributes(&attr, kernel) != cudaSuccess) return -1;
+  if (32 * warps_per_block > attr.maxThreadsPerBlock) return 0;
   int n = 0;
   if (allow_shared(kernel, smem) != cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, 32 * warps_per_block, smem) !=

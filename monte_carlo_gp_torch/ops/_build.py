@@ -41,25 +41,26 @@ def find_nvcc() -> str:
     )
 
 
-def library_path(name: str, sources: list[str]) -> Path:
+def library_path(name: str, sources: list[str], src_dir: Path = CSRC_DIR) -> Path:
     h = hashlib.sha256()
     for flag in NVCC_FLAGS:
         h.update(flag.encode())
     for src in sources:
-        h.update((CSRC_DIR / src).read_bytes())
+        h.update((src_dir / src).read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_cuda_library(name: str, sources: list[str]) -> Path:
-    """Path of the built library for `sources` (file names under csrc/),
-    compiling it if it is not there yet. The compiler's report (registers,
-    spills) is kept beside it as `<library>.log`."""
-    out = library_path(name, sources)
+def build_cuda_library(name: str, sources: list[str], src_dir: Path = CSRC_DIR) -> Path:
+    """Path of the built library for `sources` (file names under `src_dir`,
+    by default the package's csrc/), compiling it if it is not there yet.
+    The compiler's report (registers, spills) is kept beside it as
+    `<library>.log`."""
+    out = library_path(name, sources, src_dir)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC_DIR / s) for s in sources)]
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(src_dir / s) for s in sources)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(

@@ -134,6 +134,41 @@ def _condition_compound(track: int, remaining: int) -> int:
     return cfg.INTERMEDIATE if track == cfg.DAMP else dry
 
 
+def _overtake_pass(cum, pace, att, u, pass_active, key_of, tenth, overtake_delta: float):
+    """One overtake pass of n simulations -> (cum after it, (n, 1) whether
+    the simulation swapped). cum, pace, att and u are (n, D) by car (u by
+    position); `key_of(cum)` gives the rank keys and `tenth` is 0.1 * the
+    position; a simulation whose `pass_active` is False swaps nothing.
+
+    In position space, row p of r_* is the car at position p. The
+    reference's sequential time-rewrite chain
+      nb = max(0.1, rows[p-1] - 0.1); if swap[p]: rows[p-1] = nb + 0.3; rows[p] = nb
+    is evaluated in the Pallas kernel's closed form, a prefix max of
+    z = where(swapped, -inf, r_cum + 0.1 p) (the two differ by ULPs). Where
+    nothing swaps the pass gives every car its own time back, bit for bit,
+    which lets the CUDA kernel skip a dead pass's work."""
+    n, d = cum.shape
+    orank, inv = _ranks(key_of(cum))
+    r_cum, r_pace, r_att = (x.gather(1, inv) for x in (cum, pace, att))
+    delta = r_pace[:, :-1] - r_att[:, 1:]
+    prob = (delta * 0.5).clamp_max(0.5)
+    swap = (delta > overtake_delta) & (u[:, 1:] < prob) & pass_active
+    no_swap = torch.zeros((n, 1), dtype=torch.bool, device=cum.device)
+    swapped = torch.cat([no_swap, swap], 1)
+    z = torch.where(swapped, -INF, r_cum + tenth)
+    dist = 1
+    while dist < d:
+        shifted = torch.cat(
+            [torch.full((n, dist), -INF, dtype=torch.float32, device=cum.device), z[:, : d - dist]], 1
+        )
+        z = torch.maximum(z, shifted)
+        dist *= 2
+    a = torch.where(swapped, (z - tenth).clamp_min(0.1), r_cum)
+    swap_next = torch.cat([swapped[:, 1:], no_swap], 1)
+    final = torch.where(swap_next, (a - 0.1).clamp_min(0.1) + 0.3, a)
+    return final.gather(1, orank), swap.any(1, keepdim=True)
+
+
 def _simulate(pmat, scal, grid_log, race_laps: int, bits, n: int):
     """One chunk of `n` simulations -> final positions (n, D), 1-based."""
     dev = pmat.device
@@ -322,36 +357,16 @@ def _simulate(pmat, scal, grid_log, race_laps: int, bits, n: int):
         used_h = used_h | (pit & (new_compound == cfg.HARD))
         age = torch.where(pit, 0.0, age)
 
-        # overtakes: 3 passes in position space. Row p of r_* is the car at
-        # position p; the reference's sequential time-rewrite chain
-        #   nb = max(0.1, rows[p-1] - 0.1); if swap[p]: rows[p-1] = nb + 0.3; rows[p] = nb
-        # is evaluated in the Pallas kernel's closed form, a prefix max of
-        # z = where(swapped, -inf, r_cum + 0.1 p) (the two differ by ULPs).
+        # overtakes: 3 passes in position space; a pass after one without a
+        # swap is dead (it swaps nothing) but still takes its draw
         pace = torch.where(dnf, float("nan"), base_pace + age * driver_deg)
         att = pace - torch.where(drs, drs_delta, 0.0)
         pass_active = torch.ones((n, 1), dtype=torch.bool, device=dev)
         for _ in range(3 if d > 1 else 0):
-            orank, inv = _ranks(key_of(cum))
-            r_cum, r_pace, r_att = (x.gather(1, inv) for x in (cum, pace, att))
-            delta = r_pace[:, :-1] - r_att[:, 1:]
-            prob = (delta * 0.5).clamp_max(0.5)
-            u = uniform()
-            swap = (delta > overtake_delta) & (u[:, 1:] < prob) & pass_active
-            no_swap = torch.zeros((n, 1), dtype=torch.bool, device=dev)
-            swapped = torch.cat([no_swap, swap], 1)
-            z = torch.where(swapped, -INF, r_cum + tenth)
-            dist = 1
-            while dist < d:
-                shifted = torch.cat(
-                    [torch.full((n, dist), -INF, dtype=f32, device=dev), z[:, : d - dist]], 1
-                )
-                z = torch.maximum(z, shifted)
-                dist *= 2
-            a = torch.where(swapped, (z - tenth).clamp_min(0.1), r_cum)
-            swap_next = torch.cat([swapped[:, 1:], no_swap], 1)
-            final = torch.where(swap_next, (a - 0.1).clamp_min(0.1) + 0.3, a)
-            cum = final.gather(1, orank)
-            pass_active = pass_active & swap.any(1, keepdim=True)
+            cum, swapped = _overtake_pass(
+                cum, pace, att, uniform(), pass_active, key_of, tenth, overtake_delta
+            )
+            pass_active = pass_active & swapped
 
         # position / DRS update
         urank, order = _ranks(key_of(cum, dnf))
@@ -523,28 +538,33 @@ def build():
 
     path = build_cuda_library("race_kernel", _SOURCES)
     if _lib is None:
-        lib = ctypes.CDLL(str(path))
-        fn = lib.mcgp_race_counts
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int,
-            ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-        fn = lib.mcgp_season_counts
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-        fn = lib.mcgp_blocks_per_sm
-        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
-        fn.restype = ctypes.c_int
-        _lib = lib
+        _lib = load_library(path)
     return path
+
+
+def load_library(path) -> ctypes.CDLL:
+    """A built race-kernel library with its C entry points' signatures set."""
+    lib = ctypes.CDLL(str(path))
+    fn = lib.mcgp_race_counts
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int,
+        ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    fn = lib.mcgp_season_counts
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    fn = lib.mcgp_blocks_per_sm
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return lib
 
 
 def race_counts(
@@ -604,7 +624,7 @@ def _check_warps(warps_per_block: int | None) -> None:
 # A full launch is this many waves of the blocks that fit on every SM at once.
 GRID_WAVES = 4
 # The block shapes the default picks from, in order of preference.
-BLOCK_SHAPES = (8, 4)
+BLOCK_SHAPES = (8, 12, 4)
 
 
 @functools.lru_cache(maxsize=None)

@@ -26,20 +26,45 @@ And on the synthetic 2024 season (20 races, 44 to 78 laps):
 
 And on wide fields (20, 40, 80 and 128 drivers: one to four cars per lane):
 
-  * the race kernel's time for blocks of 8 and 4 warps, each with the grid
+  * the race kernel's time for blocks of 8, 12 and 4 warps (those that
+    fit at the width), each with the grid
     of 64 warps per SM and with 1, 2 and 4 whole waves of the blocks that
     fit on every SM at once (the occupancy calculator's count), and the
     default launch shape, with a check that the counts do not change.
 
+And the kernels themselves: the static SASS opcode mix of every
+instantiation (`cuobjdump -sass` of the built library, by class: shuffle,
+shared load/store, MUFU, integer, float, vote/branch, global/constant
+memory), with its registers and spills (the `ptxas -v` report kept beside
+the library) and the warps that stay resident on an SM at the default
+launch shape.
+
 Every line it prints carries the card's name and power limit; the last is
 the whole report as one JSON object. It needs a CUDA device and exits
-non-zero without one.
+non-zero without one. Two shorter runs:
+
+    python -m monte_carlo_gp_torch.profile_kernel --mix
+    python -m monte_carlo_gp_torch.profile_kernel --against OLD.cu
+
+`--mix` prints only the kernels' mix. `--against` builds OLD.cu (another
+version of `csrc/race_kernel.cu`) into a library of its own and times it
+and the current kernels in turns (old, new, new, old) on K1 at 20 drivers
+(the Bahrain 2024 plan, 57 laps, 1,048,576 simulations) and at 40, 80 and
+128 (57 laps, 262,144), and on K2 on the golden file's synthetic 2024
+season (10,000 and 262,144 simulations per race) and wide season (65,536),
+with a check that both give the same counts, and the mix of both.
+`--against-shapes 8,4` gives the block shapes the old version's wrappers
+picked from, where they differ from `BLOCK_SHAPES` (the kernels before
+blocks of 12 warps took at most 256 threads at four cars per lane).
 """
 
 from __future__ import annotations
 
+import argparse
+import contextlib
 import functools
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -64,7 +89,35 @@ SEASON_SEED = 42 * 1_000_003 + SEASON
 # wide fields: (drivers, simulations) at 57 laps, the block shapes and the
 # whole waves of resident blocks compared
 WIDE_SHAPES = ((20, 1_048_576), (40, 262_144), (80, 262_144), (128, 262_144))
-WIDE_WARPS, WIDE_WAVES, WIDE_LAPS = (8, 4), (1, 2, 4), 57
+WIDE_WARPS, WIDE_WAVES, WIDE_LAPS = (8, 12, 4), (1, 2, 4), 57
+# a field width of each tier of cars per lane, R = 1..4
+TIER_WIDTHS = (20, 40, 80, 128)
+# the comparison in turns: (label, drivers, simulations) of K1 and
+# (label, simulations per race) of K2
+AGAINST_K1 = (("K1 D=20 main shape", 20, 1_048_576), ("K1 D=40", 40, 262_144),
+              ("K1 D=80", 80, 262_144), ("K1 D=128", 128, 262_144))
+AGAINST_K2 = (("K2 2024 season", "k2_season2024", 10_000),
+              ("K2 2024 season", "k2_season2024", 262_144),
+              ("K2 wide season", "k2_wide_season", 65_536))
+
+# The classes of the SASS opcode mix; an opcode of none of them (and not a
+# NOP) counts as integer work (IMAD, IADD3, ISETP, LOP3, SHF, LEA, SEL, MOV,
+# the uniform datapath's U* and the predicate logic). The counts are static:
+# instructions in the compiled kernel, not instructions executed.
+SASS_CLASSES = {
+    "shuffle": ("SHFL",),
+    "shared load/store": ("LDS", "STS", "ATOMS", "LDSM"),
+    "MUFU": ("MUFU",),
+    "float": ("FADD", "FMUL", "FFMA", "FSETP", "FMNMX", "FSEL", "FRND", "FCHK", "FSET", "F2F",
+              "I2F", "F2I", "FSWZADD"),
+    "vote/branch": ("VOTE", "VOTEU", "BRA", "BRX", "BSSY", "BSYNC", "WARPSYNC", "EXIT", "BAR",
+                    "BMOV", "BREAK", "CALL", "RET", "YIELD", "JMP"),
+    "global/constant memory": ("LDG", "STG", "LDC", "ULDC", "RED", "ATOM", "ATOMG", "LD", "ST",
+                               "LDL", "STL", "MEMBAR", "CCTL", "ERRBAR"),
+}
+_SASS_CLASS = {op: cls for cls, ops in SASS_CLASSES.items() for op in ops}
+_SASS_OPCODE = re.compile(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]*)")
+_KERNEL = re.compile(r"(race_kernel|season_kernel)ILi(\d)E")
 
 
 def card() -> str:
@@ -72,6 +125,144 @@ def card() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
+
+
+def kernel_name(mangled: str) -> str | None:
+    """`race_kernel<R>` or `season_kernel<R>` of a mangled kernel name."""
+    m = _KERNEL.search(mangled)
+    return f"{m[1]}<{m[2]}>" if m else None
+
+
+def sass_mix(sass: str) -> dict[str, dict[str, int]]:
+    """Static opcode counts by class of each race kernel in `cuobjdump
+    -sass` output (NOPs, the padding after EXIT, are not counted)."""
+    mix, counts = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = kernel_name(line.split("Function :", 1)[1])
+            counts = mix.setdefault(name, dict.fromkeys([*SASS_CLASSES, "integer"], 0)) if name else None
+            continue
+        m = _SASS_OPCODE.search(line)
+        if counts is not None and m and m[1] != "NOP":
+            counts[_SASS_CLASS.get(m[1], "integer")] += 1
+    return mix
+
+
+def ptxas_report(log: str) -> dict[str, dict[str, int]]:
+    """Registers, stack frame and spill bytes of each race kernel in a
+    `ptxas -v` report."""
+    report, cur = {}, None
+    for line in log.splitlines():
+        if m := re.search(r"Function properties for (\S+)", line):
+            cur = report.setdefault(kernel_name(m[1]), {}) if kernel_name(m[1]) else None
+        elif cur is None:
+            continue
+        elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                            r"(\d+) bytes spill loads", line):
+            cur.update(stack=int(m[1]), spill_stores=int(m[2]), spill_loads=int(m[3]))
+        elif m := re.search(r"Used (\d+) registers", line):
+            cur["registers"] = int(m[1])
+    return report
+
+
+def kernel_mix(dev, lib_path: Path, where: str, label: str = "") -> list[dict]:
+    """Each kernel instantiation of the library at `lib_path` (loaded as the
+    race kernel's library): its registers and spills, the warps resident on
+    an SM at the default launch shape, and its SASS opcode mix."""
+    from monte_carlo_gp_torch.ops import race_kernel as rk
+    from monte_carlo_gp_torch.ops._build import find_nvcc
+
+    cuobjdump = Path(find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True).stdout
+    mix = sass_mix(sass)
+    regs = ptxas_report(lib_path.with_suffix(".log").read_text())
+    rows = []
+    for r, d in enumerate(TIER_WIDTHS, start=1):
+        for season in (False, True):
+            name = f"{'season' if season else 'race'}_kernel<{r}>"
+            warps, _ = rk.launch_shape(dev, d, season=season)
+            per_sm = rk.blocks_per_sm(dev.index or 0, d, warps, season)
+            counts = mix.get(name, {})
+            total = sum(counts.values())
+            row = {"kernel": name, "library": lib_path.name, **regs.get(name, {}),
+                   "drivers": d, "warps_per_block": warps, "blocks_per_sm": per_sm,
+                   "resident_warps_per_sm": per_sm * warps, "sass": counts, "sass_total": total}
+            rows.append(row)
+            spills = row.get("spill_stores", "?"), row.get("spill_loads", "?")
+            print(f"[mix{label}] {name} (D={d}): {row.get('registers', '?')} registers, spill "
+                  f"stores/loads {spills[0]}/{spills[1]} B; {warps} warps x {per_sm} blocks = "
+                  f"{per_sm * warps} resident warps per SM; SASS {total} instructions: "
+                  + ", ".join(f"{k} {v} ({v / max(total, 1):.1%})" for k, v in counts.items())
+                  + f" ({where})", flush=True)
+    return rows
+
+
+@contextlib.contextmanager
+def using_library(lib, block_shapes=None):
+    """The race kernel's wrappers launch from `lib` (a loaded library) inside
+    the block, their default launch shape picked from `block_shapes` (by
+    default `BLOCK_SHAPES`); the occupancy cache is emptied on the way in
+    and out."""
+    from monte_carlo_gp_torch.ops import race_kernel as rk
+
+    saved = rk._lib, rk.BLOCK_SHAPES
+    rk._lib = lib
+    rk.BLOCK_SHAPES = tuple(block_shapes or rk.BLOCK_SHAPES)
+    rk.blocks_per_sm.cache_clear()
+    try:
+        yield
+    finally:
+        rk._lib, rk.BLOCK_SHAPES = saved
+        rk.blocks_per_sm.cache_clear()
+
+
+def compare_against(dev, against: Path, where: str, old_shapes=None) -> dict:
+    """The library built from `against` and the current one, in turns (old,
+    new, new, old) at each shape of AGAINST_K1 and AGAINST_K2. The old
+    library's default launch shape is picked from `old_shapes` (default
+    `BLOCK_SHAPES`): the block shapes that its wrappers offered."""
+    from monte_carlo_gp_torch.ops import race_kernel as rk
+    from monte_carlo_gp_torch.ops._build import build_cuda_library
+    from monte_carlo_gp_torch.validate import golden
+
+    against = against.resolve()
+    old_path = build_cuda_library("race_kernel_against", [against.name], src_dir=against.parent)
+    new_path = rk.build()
+    libs = {"old": rk.load_library(old_path), "new": rk._lib}
+    shapes = {"old": old_shapes, "new": None}
+    mixes = {}
+    for label, path in (("old", old_path), ("new", new_path)):
+        with using_library(libs[label], shapes[label]):
+            mixes[label] = kernel_mix(dev, path, where, f" {label}")
+
+    season = golden.load()
+    runs = []
+    for label, d, n in AGAINST_K1:
+        launch, (pmat, scal, grid_log, laps) = golden.case_inputs(f"k1_d{d}", dev, season)
+        runs.append((f"{label}, {laps} laps, {n} sims",
+                     functools.partial(launch, pmat, scal, grid_log, laps, n, seed=0)))
+    for label, case, n in AGAINST_K2:
+        launch, (pmat_s, scal_s, grid_log_s, laps, seeds) = golden.case_inputs(case, dev, season)
+        runs.append((f"{label}, {len(laps)} races x {n} sims",
+                     functools.partial(launch, pmat_s, scal_s, grid_log_s, laps, n, seeds)))
+    rows = []
+    for shape, fn in runs:
+        times, counts = {"old": [], "new": []}, {}
+        for label in ("old", "new", "new", "old"):
+            with using_library(libs[label], shapes[label]):
+                times[label].append(event_ms(fn))
+                counts[label] = fn()
+        same = torch.equal(counts["old"], counts["new"])
+        row = {"shape": shape, "old_ms": times["old"], "new_ms": times["new"], "counts_equal": same}
+        rows.append(row)
+        old, new = sum(times["old"]) / 2, sum(times["new"]) / 2
+        print(f"[against] {shape}: old {times['old'][0]:.3f} / {times['old'][1]:.3f} ms, new "
+              f"{times['new'][0]:.3f} / {times['new'][1]:.3f} ms (old, new, new, old); new / old "
+              f"{new / old:.4f}; counts bitwise equal: {same} ({where})", flush=True)
+    if not all(r["counts_equal"] for r in rows):
+        raise AssertionError("the two libraries give different counts")
+    return {"card": where, "against": str(against), "mix": mixes, "turns": rows}
 
 
 def event_ms(fn, repeats: int = 3) -> float:
@@ -250,6 +441,8 @@ def wide_shapes(dev, where: str) -> list[dict]:
         shapes = [("default", *default)]
         for warps in WIDE_WARPS:
             per_sm = rk.blocks_per_sm(dev.index or 0, d, warps, False)
+            if per_sm == 0:  # a block of this many warps does not fit at this width
+                continue
             shapes.append(("64 warps per SM", warps, n_sm * (64 // warps)))
             shapes += [(f"{w} whole waves", warps, w * n_sm * per_sm) for w in WIDE_WAVES]
         for label, warps, blocks in shapes:
@@ -267,7 +460,13 @@ def wide_shapes(dev, where: str) -> list[dict]:
     return rows
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description="Profile the race kernels on a CUDA GPU.")
+    ap.add_argument("--mix", action="store_true", help="print only the kernels' mix")
+    ap.add_argument("--against", type=Path, help="time another race_kernel.cu against this one")
+    ap.add_argument("--against-shapes", default=None,
+                    help="warps per block the other version's launch picks from, e.g. 8,4")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("profile_kernel: needs a CUDA device (torch.cuda.is_available() is False)")
     from monte_carlo_gp_torch.ops import race_kernel as rk
@@ -275,6 +474,15 @@ def main() -> None:
     dev = torch.device("cuda:0")
     where = card()
     print(f"[card] {where}", flush=True)
+    lib_path = rk.build()
+    if args.against:
+        old_shapes = args.against_shapes and [int(w) for w in args.against_shapes.split(",")]
+        print(json.dumps(compare_against(dev, args.against, where, old_shapes)), flush=True)
+        return
+    mix = kernel_mix(dev, lib_path, where)
+    if args.mix:
+        print(json.dumps({"card": where, "mix": mix}), flush=True)
+        return
 
     weekend = profile_weekend(dev)
     plan = weekend.pop("plan")
@@ -319,7 +527,8 @@ def main() -> None:
     wide_rows = wide_shapes(dev, where)
 
     report = {"card": where, "weekend": weekend, "scaling": scaling, "launch_shape": shapes,
-              "season_backtest": season, "season_shape": season_rows, "wide_shape": wide_rows}
+              "season_backtest": season, "season_shape": season_rows, "wide_shape": wide_rows,
+              "mix": mix}
     print(json.dumps(report), flush=True)
 
 

@@ -11,6 +11,8 @@ the CUDA kernel. It is held
 The CUDA kernel itself is tested in tests/test_torch_race_kernel_gpu.py.
 """
 
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -248,3 +250,86 @@ def test_plain_version_keeps_the_wide_field_tiers():
     probs = rk.run_monte_carlo_kernel(make_sim_params(**fields), 3, 256, 10).numpy()
     np.testing.assert_allclose(probs.sum(axis=1), 1.0, atol=1e-6)
     np.testing.assert_allclose(probs.sum(axis=0), 1.0, atol=1e-6)
+
+
+# ---- the overtake pass: what the CUDA kernel may skip ---------------------------
+
+PLAN_FIXTURE = Path(__file__).resolve().parent / "data" / "torch_plan_bahrain2024.npz"
+
+
+def _pass_inputs(d, n=256, seed=0):
+    """(cum, pace, att, u, key_of, tenth) of n simulations of d cars: times a
+    few seconds apart, paces that differ by up to 4 s (so live passes swap
+    often), a few retired cars (NaN pace) and DRS on some cars."""
+    from monte_carlo_gp_torch.ops.ranking import rank_key, rank_tier
+
+    rng = np.random.default_rng(seed)
+    cum = torch.from_numpy((5_000.0 + rng.uniform(0.0, 3.0 * d, (n, d))).astype(np.float32))
+    pace = torch.from_numpy(rng.uniform(88.0, 92.0, (n, d)).astype(np.float32))
+    pace[torch.from_numpy(rng.uniform(size=(n, d)) < 0.05)] = float("nan")
+    att = pace - torch.from_numpy(np.where(rng.uniform(size=(n, d)) < 0.2, 0.3, 0.0).astype(np.float32))
+    u = torch.from_numpy(rng.uniform(size=(n, d)).astype(np.float32))
+    row = torch.arange(d, dtype=torch.int32)[None, :]
+    q_shift, row_mult = rank_tier(d)
+    return cum, pace, att, u, (lambda c: rank_key(c, row, q_shift, row_mult)), row.float() * 0.1
+
+
+@pytest.fixture(scope="module")
+def live_pass_shares():
+    """The share of simulation-laps in which passes 1, 2 and 3 are live, from
+    the plain version on the Bahrain 2024 plan (20 drivers, 57 laps, 1,024
+    simulations, seed 0): a pass is live when the one before it swapped."""
+    from monte_carlo_gp_torch.config import sim_params_from_numpy
+
+    with np.load(PLAN_FIXTURE) as f:
+        fields = {k: f[k] for k in f.files}
+    pmat, scal, grid_log = rk.pack_inputs(sim_params_from_numpy(fields))
+    active = []
+    real = rk._overtake_pass
+
+    def spy(cum, pace, att, u, pass_active, *args):
+        active.append(pass_active.float().mean().item())
+        return real(cum, pace, att, u, pass_active, *args)
+
+    rk._overtake_pass = spy
+    try:
+        rk.race_counts_plain(pmat, scal, grid_log, int(fields["total_laps"]), 1_024, seed=0)
+    finally:
+        rk._overtake_pass = real
+    assert len(active) == 3 * (int(fields["total_laps"]) - 1)
+    return [float(np.mean(active[k::3])) for k in range(3)]
+
+
+@pytest.mark.parametrize("d", [20, 40, 80])
+def test_dead_overtake_pass_leaves_times_unchanged(d, live_pass_shares):
+    """A pass whose simulations are all dead (pass_active False) gives every
+    car its own time back, bit for bit, and swaps nothing: the CUDA kernel
+    takes only a dead pass's draw. Live, the same inputs do swap. Dead
+    passes are common: on the Bahrain plan passes 2 and 3 are live in a
+    share of laps below 1."""
+    cum, pace, att, u, key_of, tenth = _pass_inputs(d)
+    n = cum.shape[0]
+    dead = torch.zeros((n, 1), dtype=torch.bool)
+    out, swapped = rk._overtake_pass(cum, pace, att, u, dead, key_of, tenth, 0.6)
+    assert torch.equal(out.view(torch.int32), cum.view(torch.int32))
+    assert not bool(swapped.any())
+    live, swapped = rk._overtake_pass(cum, pace, att, u, ~dead, key_of, tenth, 0.6)
+    assert float(swapped.float().mean()) > 0.5 and not torch.equal(live, cum)
+
+    first, second, third = live_pass_shares
+    assert first == 1.0
+    assert 0.0 < third <= second < 1.0
+
+
+@pytest.mark.parametrize("d", [20, 40, 80])
+def test_swap_free_overtake_pass_leaves_times_unchanged(d):
+    """A live pass in which no car swaps (every draw at or above the swap
+    probability, which is at most 0.5) also gives every car its own time
+    back bit for bit: the CUDA kernel stops such a pass after its ballot."""
+    cum, pace, att, _, key_of, tenth = _pass_inputs(d, seed=1)
+    n = cum.shape[0]
+    u = torch.full_like(cum, 0.5)
+    live = torch.ones((n, 1), dtype=torch.bool)
+    out, swapped = rk._overtake_pass(cum, pace, att, u, live, key_of, tenth, 0.6)
+    assert not bool(swapped.any())
+    assert torch.equal(out.view(torch.int32), cum.view(torch.int32))

@@ -1,7 +1,8 @@
 """The CUDA race kernels (`monte_carlo_gp_torch/csrc/race_kernel.cu`: K1, one
 race, and K2, a season in one launch) against their plain PyTorch versions on
-the same Philox stream, and their sharded launches against one launch. Every
-test here needs a CUDA device and skips without one.
+the same Philox stream, against the golden counts of
+`tests/data/torch_kernel_golden.npz` bit for bit, and their sharded launches
+against one launch. Every test here needs a CUDA device and skips without one.
 
 This file imports torch and the port only, so it also runs on a GPU machine
 without jax:
@@ -17,6 +18,7 @@ from monte_carlo_gp_torch.config import make_sim_params
 from monte_carlo_gp_torch.ops import philox
 from monte_carlo_gp_torch.ops import race_kernel as rk
 from monte_carlo_gp_torch.parallel.mesh import make_mesh
+from monte_carlo_gp_torch.validate import golden
 
 # only last-bit differences of log/cos between the kernel and the plain
 # version may flip a decision, which moves a handful of simulations: per
@@ -280,3 +282,26 @@ def test_sharded_entries_refuse_a_cpu_mesh_for_cuda_inputs(cuda_device):
     with pytest.raises(ValueError, match="every shard must be a device of the inputs' type"):
         rk.season_counts_sharded(pmat_s, scal_s, grid_log_s, [10, 10, 10], 1_000, seeds,
                                  mesh=make_mesh(devices=["cpu"]))
+
+
+# ---- the golden counts ----------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def golden_counts():
+    return golden.load()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", golden.CASES)
+def test_kernel_counts_equal_the_golden_file(case, cuda_device, golden_counts):
+    """K1 at 20, 40, 80 and 128 drivers and K2 on the synthetic 2024 season
+    and the padded wide season (65,536 sims per race) give the golden file's
+    counts bit for bit: the race body may change how it computes, never
+    what."""
+    got = golden.run_case(case, cuda_device, golden_counts, int(golden_counts["sims"]))
+    torch.cuda.synchronize()
+    want = golden_counts[case]
+    assert got.shape == want.shape
+    differ = got.cpu().numpy() != want
+    assert not differ.any(), f"{int(differ.sum())} of {want.size} cells differ"

@@ -132,7 +132,7 @@ XLA_WEEKEND_SIMS, XLA_SEASON_SIMS = 262_144, 2_048
 HBM_BYTES_PER_S, F32_FLOPS_PER_S = 3.35e12, 67e12
 
 
-def race_flops(d: int, laps: int, n_sims: int) -> int:
+def race_flops(d: int, laps: int, n_sims: int, passes: tuple[int, int]) -> int:
     """float32 operations of `n_sims` races of `d` cars over `laps` laps,
     counted per car from `csrc/race_kernel.cu` (add, sub, mul, min, max,
     floor, sqrt, log, cos, negation; compares, selects, shuffles, integer
@@ -143,15 +143,34 @@ def race_flops(d: int, laps: int, n_sims: int) -> int:
         the start model, the state update, the leader and the rank key: 49;
       * each further lap: race control (21), the DNF draw and normal (10),
         the clean lap time (10), dirty air (2), the state update (5), the
-        pit window (2), pace (3), the position update (8), and three
-        overtake passes of 11 plus the prefix max's steps each: ceil(log2 d)
-        up to 32 cars, and above (several cars per lane) a 5-step scan
-        within each slot of 32 positions and one step carried across.
-    Above 32 cars the grid's two warp maxima first reduce over the lane's
-    slots, which adds no operation per car."""
+        pit window (2), pace (3), the position update (8): 61;
+      * each live overtake pass: its uniform, the pace gap and the swap
+        probability: 4; and each pass in which a car swaps, the
+        time-rewrite chain: 7 plus the prefix max's steps, ceil(log2 d) up
+        to 32 cars, and above (several cars per lane) a 5-step scan within
+        each slot of 32 positions and one step carried across.
+    `passes` is (live, swapping): the simulation-passes of this run's data
+    that were live and that swapped (`profile_kernel.overtake_passes` on the
+    plain version). A dead pass (the one before it swapped nothing) only
+    takes its draw, which is Philox work. Above 32 cars the grid's two warp
+    maxima first reduce over the lane's slots, which adds no operation per
+    car."""
     scan = math.ceil(math.log2(max(d, 2))) if d <= 32 else 6
-    per_lap = 61 + 3 * (11 + scan)
-    return n_sims * d * (17 * d + 49 + (laps - 1) * per_lap)
+    live, swapping = passes
+    return n_sims * d * (17 * d + 49 + (laps - 1) * 61) + d * (4 * live + (7 + scan) * swapping)
+
+
+def pass_counts(races) -> list[tuple[int, int]]:
+    """(live, swapping) of each race that `profile_kernel.overtake_passes`
+    counted."""
+    return [(int(live), int(swapping)) for live, swapping in races]
+
+
+def pass_shares(passes: tuple[int, int], laps, n_sims: int) -> str:
+    """The live and swapping passes per simulation-lap over races of `laps`
+    laps (one count per race), for the log."""
+    per = n_sims * max(sum(lp - 1 for lp in laps), 1)
+    return f"{passes[0] / per:.4f} live and {passes[1] / per:.4f} swapping passes per lap"
 
 
 def bound(flops: float, n_bytes: float) -> tuple[float, str]:
@@ -294,10 +313,11 @@ def shard_mesh(dev, n_shards: int):
     return make_mesh(devices=[dev] * n_shards)
 
 
-def golden_phase(dev) -> None:
+def golden_phase(dev) -> dict[str, int]:
     """K1 and K2 on the golden file's cases, bitwise equal to its counts, and
     the sharded entries on two of them (K1 at 20 drivers over 3 shards, K2 on
-    the 2024 season over 2); prints the cells that differ."""
+    the 2024 season over 2); prints the cells that differ. Returns them by
+    entry of the kernels line."""
     from monte_carlo_gp_torch.ops import race_kernel as rk
     from monte_carlo_gp_torch.validate import golden
 
@@ -318,37 +338,37 @@ def golden_phase(dev) -> None:
         + f"; phase {time.perf_counter() - t0:.1f} s")
     if any(diffs.values()):
         raise AssertionError("the kernels' counts depart from the golden file")
+    return {
+        "race_counts": sum(diffs[f"k1_d{w}"] for w in golden.K1_WIDTHS),
+        "season_counts": diffs["k2_season2024"] + diffs["k2_wide_season"],
+        "race_counts_sharded": diffs["k1_d20 over 3 shards"] + diffs["k2_season2024 over 2 shards"],
+    }
 
 
 def kernel_facts(dev, d: int, season: bool) -> dict:
-    """The registers and spills ptxas gave the kernel that runs d drivers
-    (K1, or K2 with `season`) and the warps that stay resident on an SM at
-    its default launch shape."""
+    """`profile_kernel.kernel_facts` of the built library: the kernel that
+    runs d drivers (K1, or K2 with `season`), its registers and spills and
+    the warps resident on an SM at its default launch shape."""
     from monte_carlo_gp_torch.ops import race_kernel as rk
-    from monte_carlo_gp_torch.profile_kernel import ptxas_report
+    from monte_carlo_gp_torch.profile_kernel import kernel_facts as facts, ptxas_report
 
-    report = ptxas_report(rk.build().with_suffix(".log").read_text())
-    name = f"{'season' if season else 'race'}_kernel<{-(-d // 32)}>"
-    warps, _ = rk.launch_shape(dev, d, season=season)
-    per_sm = rk.blocks_per_sm(dev.index or 0, d, warps, season)
-    facts = report[name]
-    return {"kernel": name, "registers": facts["registers"],
-            "spill_bytes": facts["spill_stores"] + facts["spill_loads"],
-            "resident_warps_per_sm": per_sm * warps}
+    return facts(dev, ptxas_report(rk.build().with_suffix(".log").read_text()), d, season)
 
 
-def season_phases(dev) -> tuple[list[int], dict, dict, dict]:
+def season_phases(dev, golden_cells: int) -> tuple[list[int], dict, dict, dict]:
     """K2 against its plain version and against K1, then the season paths
     through their CLI entry points, then the timings at the season's shape,
     then the sharded K2 at 2 and 4 shards on the card. Returns the season's
-    lap counts, K2's entry of the kernels line, the sharded K2's readings
-    and the batched 2024 backtest's result."""
+    lap counts, K2's entry of the kernels line (with `golden_cells`, the
+    cells in which K2 departed from the golden counts), the sharded K2's
+    readings and the batched 2024 backtest's result."""
     from monte_carlo_gp_torch import backtest as backtest_cli
     from monte_carlo_gp_torch import tune as tune_cli
     from monte_carlo_gp_torch.data.synthetic import SyntheticBackend
     from monte_carlo_gp_torch.models.predictor import F1Predictor
     from monte_carlo_gp_torch.ops import philox
     from monte_carlo_gp_torch.ops import race_kernel as rk
+    from monte_carlo_gp_torch.profile_kernel import overtake_passes
     from monte_carlo_gp_torch.utils.profiling import Phase, timed_calls
     from monte_carlo_gp_torch.validate import backtest as bt
 
@@ -459,19 +479,20 @@ def season_phases(dev) -> tuple[list[int], dict, dict, dict]:
         rk.race_counts(pmat_s[r], scal_s[r], grid_log_s[r], laps[r], n, seed=seeds[r])
         for r in range(len(plans))])
     kernel = rk.season_counts(pmat_s, scal_s, grid_log_s, laps, n, seeds)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    plain = rk.season_counts_plain(pmat_s, scal_s, grid_log_s, laps, n, seeds)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
+    with overtake_passes() as races:
+        plain, plain_ms = plain_ms_of(
+            lambda: rk.season_counts_plain(pmat_s, scal_s, grid_log_s, laps, n, seeds))
+    passes = pass_counts(races)
     err = max(max_prob_err(kernel[r], plain[r], n) for r in range(len(plans)))
     # the work of each race's real field; its inputs are read at the padded
     # width, with its two key words and its lap count
-    bound_ms, bound_by = bound(sum(race_flops(w, lp, n) for w, lp in zip(widths, laps)),
+    bound_ms, bound_by = bound(sum(race_flops(w, lp, n, p) for w, lp, p in zip(widths, laps, passes)),
                                len(plans) * (race_bytes(d) + 8 + 4))
+    season_passes = tuple(map(sum, zip(*passes)))
     log(f"[season shape] 20 races x {n} sims: K2 {season_ms:.3f} ms, 20 K1 launches "
         f"{singles_ms:.3f} ms, plain {plain_ms:.1f} ms, max |dprob| {err:.3e} "
-        f"(bound {MAX_ABS_PROB_ERR}); roofline bound {bound_ms:.3f} ms ({bound_by})")
+        f"(bound {MAX_ABS_PROB_ERR}); {pass_shares(season_passes, laps, n)} (plain version, "
+        f"the season's); roofline bound {bound_ms:.3f} ms ({bound_by})")
     if not err <= MAX_ABS_PROB_ERR:
         raise AssertionError("the season kernel disagrees with its plain version at its shape")
 
@@ -512,7 +533,8 @@ def season_phases(dev) -> tuple[list[int], dict, dict, dict]:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-        "golden": True,
+        "golden": golden_cells == 0,
+        "golden_cells_differ": golden_cells,
         **kernel_facts(dev, d, season=True),
     }, sharded, one
 
@@ -523,6 +545,7 @@ def wide_kernel_phases(dev) -> list[dict]:
     plain version; then K1 at 40 drivers against the native oracle. Returns
     K1's wide readings."""
     from monte_carlo_gp_torch.ops import race_kernel as rk
+    from monte_carlo_gp_torch.profile_kernel import overtake_passes
     from monte_carlo_gp_torch.validate.native_oracle import run_native_oracle
 
     rows = []
@@ -553,14 +576,17 @@ def wide_kernel_phases(dev) -> list[dict]:
         n = WIDE_TIME_SIMS
         ms = time_kernel_ms(lambda: rk.race_counts(pmat, scal, grid_log, WIDE_LAPS, n, seed=0))
         kernel = rk.race_counts(pmat, scal, grid_log, WIDE_LAPS, n, seed=0)
-        plain, plain_ms = plain_ms_of(
-            lambda: rk.race_counts_plain(pmat, scal, grid_log, WIDE_LAPS, n, seed=0))
+        with overtake_passes() as races:
+            plain, plain_ms = plain_ms_of(
+                lambda: rk.race_counts_plain(pmat, scal, grid_log, WIDE_LAPS, n, seed=0))
+        (passes,) = pass_counts(races)
         err_t = max_prob_err(kernel, plain, n)
-        bound_ms, bound_by = bound(race_flops(d, WIDE_LAPS, n), race_bytes(d))
+        bound_ms, bound_by = bound(race_flops(d, WIDE_LAPS, n, passes), race_bytes(d))
         warps, blocks = rk.launch_shape(dev, d)
         log(f"[wide kernel shape] D={d}, {WIDE_LAPS} laps, {n} sims: kernel {ms:.3f} ms "
             f"({warps} warps x {blocks} blocks, {rk.blocks_per_sm(dev.index or 0, d, warps, False)} "
-            f"blocks per SM), plain {plain_ms:.1f} ms, max |dprob| {err_t:.3e}; roofline bound "
+            f"blocks per SM), plain {plain_ms:.1f} ms, max |dprob| {err_t:.3e}; "
+            f"{pass_shares(passes, [WIDE_LAPS], n)} (plain version); roofline bound "
             f"{bound_ms:.3f} ms ({bound_by}); phase {time.perf_counter() - t0:.1f} s")
         if not err_t <= MAX_ABS_PROB_ERR:
             raise AssertionError(f"K1 disagrees with its plain version at {d} drivers, {n} sims")
@@ -592,6 +618,7 @@ def wide_season_phase(dev, laps: list[int]) -> dict:
     from monte_carlo_gp_torch.data.synthetic import SyntheticBackend
     from monte_carlo_gp_torch.ops import philox
     from monte_carlo_gp_torch.ops import race_kernel as rk
+    from monte_carlo_gp_torch.profile_kernel import overtake_passes
     from monte_carlo_gp_torch.validate import backtest as bt
 
     t0 = time.perf_counter()
@@ -612,8 +639,10 @@ def wide_season_phase(dev, laps: list[int]) -> dict:
     pmat_s, scal_s, grid_log_s, d = rk.pack_season_inputs(plist)
     seeds = [philox.fold_in(WIDE_SEASON_SEED, r) for r in range(len(laps))]
     kernel = rk.season_counts(pmat_s, scal_s, grid_log_s, laps, n, seeds)
-    plain, plain_ms = plain_ms_of(
-        lambda: rk.season_counts_plain(pmat_s, scal_s, grid_log_s, laps, n, seeds))
+    with overtake_passes() as races:
+        plain, plain_ms = plain_ms_of(
+            lambda: rk.season_counts_plain(pmat_s, scal_s, grid_log_s, laps, n, seeds))
+    passes = pass_counts(races)
     err = max(max_prob_err(kernel[r], plain[r], n) for r in range(len(laps)))
     real_rows = all(bool((kernel[r, :w, :w].sum(1) == n).all()) for r, w in enumerate(widths))
     path_equal = all(np.array_equal(probs[r], (kernel[r].float() / n).cpu().numpy())
@@ -624,13 +653,14 @@ def wide_season_phase(dev, laps: list[int]) -> dict:
     shaped = torch.equal(kernel, rk.season_counts(pmat_s, scal_s, grid_log_s, laps, n, seeds,
                                                   warps_per_block=4, blocks_per_race=37))
     ms = time_kernel_ms(lambda: rk.season_counts(pmat_s, scal_s, grid_log_s, laps, n, seeds))
-    bound_ms, bound_by = bound(sum(race_flops(w, lp, n) for w, lp in zip(widths, laps)),
+    bound_ms, bound_by = bound(sum(race_flops(w, lp, n, p) for w, lp, p in zip(widths, laps, passes)),
                                len(laps) * (race_bytes(d) + 8 + 4))
+    shares = pass_shares(tuple(map(sum, zip(*passes))), laps, n)
     log(f"[wide season kernel] D={d}: vs plain max |dprob| {err:.3e} (bound {MAX_ABS_PROB_ERR}); "
         f"the path's result is K2's counts: {path_equal}; race r equals K1 at fold_in(seed, r): "
         f"{sum(singles)} of {len(laps)}; default vs 4 warps x 37 blocks per race: {shaped}; "
-        f"K2 {ms:.3f} ms, plain {plain_ms:.1f} ms, roofline bound {bound_ms:.3f} ms ({bound_by}); "
-        f"phase {time.perf_counter() - t0:.1f} s")
+        f"K2 {ms:.3f} ms, plain {plain_ms:.1f} ms; {shares} (plain version); roofline bound "
+        f"{bound_ms:.3f} ms ({bound_by}); phase {time.perf_counter() - t0:.1f} s")
     if not (err <= MAX_ABS_PROB_ERR and real_rows and path_equal and all(singles) and shaped):
         raise AssertionError("the wide season launch disagrees with its plain version or K1")
     return {"d": d, "widths": widths, "laps": laps, "launches": k2, "sims_per_race": n,
@@ -752,11 +782,13 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def sharded_kernel_phase(dev, predictor, plan, main_counts, plain_counts, plain_ms) -> dict:
+def sharded_kernel_phase(dev, predictor, plan, main_counts, plain_counts, plain_ms, passes,
+                         golden_cells: int) -> dict:
     """K1 split over 1, 2, 3 and 4 shards on the card at the main shape,
     each bitwise equal to one launch and timed beside one shard's launch;
     then the weekend through `simulate_plan` on a mesh of 4 shards. Returns
-    the sharded entry of the kernels line."""
+    the sharded entry of the kernels line (its bound from the main shape's
+    overtake `passes`, with `golden_cells` from the golden phase)."""
     from monte_carlo_gp_torch.ops import race_kernel as rk
     from monte_carlo_gp_torch.parallel.mesh import shard_range
 
@@ -792,7 +824,7 @@ def sharded_kernel_phase(dev, predictor, plan, main_counts, plain_counts, plain_
     if (launches, k1, k2) != (1, mesh.size, 0) or not same:
         raise AssertionError("the sharded weekend did not take one K1 launch per shard")
     # K1's work and inputs, and one all-reduce of the (D, D) int32 counts
-    bound_ms, bound_by = bound(race_flops(d, laps, MAIN_SIMS), race_bytes(d) + d * d * 4)
+    bound_ms, bound_by = bound(race_flops(d, laps, MAIN_SIMS, passes), race_bytes(d) + d * d * 4)
     log(f"[sharded kernel] roofline bound {bound_ms:.3f} ms ({bound_by})")
     return {
         "name": "race_counts_sharded",
@@ -807,7 +839,8 @@ def sharded_kernel_phase(dev, predictor, plan, main_counts, plain_counts, plain_
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-        "golden": True,
+        "golden": golden_cells == 0,
+        "golden_cells_differ": golden_cells,
         **kernel_facts(dev, d, season=False),
         "shards": rows,
     }
@@ -954,6 +987,7 @@ def main() -> None:
     from monte_carlo_gp_torch.data.synthetic import SyntheticBackend
     from monte_carlo_gp_torch.models.predictor import F1Predictor
     from monte_carlo_gp_torch.ops import race_kernel as rk
+    from monte_carlo_gp_torch.profile_kernel import overtake_passes
     from monte_carlo_gp_torch.validate.native_oracle import run_native_oracle
 
     # ---- build ---------------------------------------------------------------
@@ -964,7 +998,7 @@ def main() -> None:
     log(lib.with_suffix(".log").read_text().strip())
 
     # ---- the golden counts: bitwise what the kernels gave before -------------
-    golden_phase(dev)
+    golden = golden_phase(dev)
 
     # ---- kernel vs plain on the same Philox stream ---------------------------
     params = std_params(dev)
@@ -1041,11 +1075,10 @@ def main() -> None:
     run_kernel = lambda: rk.race_counts(pmat, scal, grid_log, plan.total_laps, MAIN_SIMS, seed=0)
     kernel_ms = time_kernel_ms(run_kernel)
     main_counts = run_kernel()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    plain_counts = rk.race_counts_plain(pmat, scal, grid_log, plan.total_laps, MAIN_SIMS, seed=0)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
+    with overtake_passes() as races:
+        plain_counts, plain_ms = plain_ms_of(lambda: rk.race_counts_plain(
+            pmat, scal, grid_log, plan.total_laps, MAIN_SIMS, seed=0))
+    (main_passes,) = pass_counts(races)
     main_err = max_prob_err(main_counts, plain_counts, MAIN_SIMS)
     log(f"[main shape] D=20, {plan.total_laps} laps, {MAIN_SIMS} sims: kernel {kernel_ms:.3f} ms, "
         f"plain {plain_ms:.1f} ms, max |dprob| {main_err:.3e} (bound {MAX_ABS_PROB_ERR})")
@@ -1055,8 +1088,9 @@ def main() -> None:
         raise AssertionError("the main path's result is not the kernel's counts")
 
     d = plan.params.n_drivers
-    bound_ms, bound_by = bound(race_flops(d, plan.total_laps, MAIN_SIMS), race_bytes(d))
-    log(f"[main shape] roofline bound {bound_ms:.3f} ms ({bound_by})")
+    bound_ms, bound_by = bound(race_flops(d, plan.total_laps, MAIN_SIMS, main_passes), race_bytes(d))
+    log(f"[main shape] {pass_shares(main_passes, [plan.total_laps], MAIN_SIMS)} (plain version); "
+        f"roofline bound {bound_ms:.3f} ms ({bound_by})")
     k1 = {
         "name": "race_counts",
         "route": "cuda",
@@ -1069,15 +1103,17 @@ def main() -> None:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-        "golden": True,
+        "golden": golden["race_counts"] == 0,
+        "golden_cells_differ": golden["race_counts"],
         **kernel_facts(dev, d, season=False),
     }
 
     t0 = time.perf_counter()
-    laps, k2, sharded_season, batched_2024 = season_phases(dev)
+    laps, k2, sharded_season, batched_2024 = season_phases(dev, golden["season_counts"])
     log(f"[phase] the season paths: {time.perf_counter() - t0:.1f} s")
 
-    sharded = sharded_kernel_phase(dev, predictor, plan, main_counts, plain_counts, plain_ms)
+    sharded = sharded_kernel_phase(dev, predictor, plan, main_counts, plain_counts, plain_ms,
+                                   main_passes, golden["race_counts_sharded"])
     sharded["season"] = sharded_season
     sharded["nccl"] = nccl_phase(dev, plan, main_counts)
     sharded["two_process"] = two_process_phase(dev, plan, main_counts)

@@ -400,6 +400,10 @@ __device__ __forceinline__ void race_block(const float* __restrict__ pmat,
     float age[R], fuel[R], cum[R], last_lap[R], behind[R], laps_done[R];
     float ahead_ll[R];
     bool used_s[R], used_m[R], used_h[R], dnf[R], drs[R];
+    // the previous simulation's classification read every car's DNF lap as a
+    // broadcast: the votes since then do not order memory, so fence before
+    // this simulation clears the row
+    __syncwarp();
 #pragma unroll
     for (int j = 0; j < R; ++j) {
       const bool top10 = start_pos[j] < 10;

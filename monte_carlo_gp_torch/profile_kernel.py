@@ -52,10 +52,9 @@ and the current kernels in turns (old, new, new, old) on K1 at 20 drivers
 (the Bahrain 2024 plan, 57 laps, 1,048,576 simulations) and at 40, 80 and
 128 (57 laps, 262,144), and on K2 on the golden file's synthetic 2024
 season (10,000 and 262,144 simulations per race) and wide season (65,536),
-with a check that both give the same counts, and the mix of both.
-`--against-shapes 8,4` gives the block shapes the old version's wrappers
-picked from, where they differ from `BLOCK_SHAPES` (the kernels before
-blocks of 12 warps took at most 256 threads at four cars per lane).
+with a check that both give the same counts, and the mix of both. Each
+library's default launch shape comes from its own occupancy query (0 blocks
+for a block shape it cannot launch).
 """
 
 from __future__ import annotations
@@ -165,11 +164,23 @@ def ptxas_report(log: str) -> dict[str, dict[str, int]]:
     return report
 
 
+def kernel_facts(dev, ptxas: dict, d: int, season: bool) -> dict:
+    """The instantiation that runs d drivers (K1, or K2 with `season`): its
+    name, its registers and spills from a `ptxas_report`, its default block
+    shape and the warps resident on an SM at that shape."""
+    from monte_carlo_gp_torch.ops import race_kernel as rk
+
+    name = f"{'season' if season else 'race'}_kernel<{-(-d // 32)}>"
+    warps, _ = rk.launch_shape(dev, d, season=season)
+    per_sm = rk.blocks_per_sm(dev.index or 0, d, warps, season)
+    return {"kernel": name, **ptxas.get(name, {}), "drivers": d, "warps_per_block": warps,
+            "blocks_per_sm": per_sm, "resident_warps_per_sm": per_sm * warps}
+
+
 def kernel_mix(dev, lib_path: Path, where: str, label: str = "") -> list[dict]:
     """Each kernel instantiation of the library at `lib_path` (loaded as the
     race kernel's library): its registers and spills, the warps resident on
     an SM at the default launch shape, and its SASS opcode mix."""
-    from monte_carlo_gp_torch.ops import race_kernel as rk
     from monte_carlo_gp_torch.ops._build import find_nvcc
 
     cuobjdump = Path(find_nvcc()).with_name("cuobjdump")
@@ -178,50 +189,74 @@ def kernel_mix(dev, lib_path: Path, where: str, label: str = "") -> list[dict]:
     mix = sass_mix(sass)
     regs = ptxas_report(lib_path.with_suffix(".log").read_text())
     rows = []
-    for r, d in enumerate(TIER_WIDTHS, start=1):
+    for d in TIER_WIDTHS:
         for season in (False, True):
-            name = f"{'season' if season else 'race'}_kernel<{r}>"
-            warps, _ = rk.launch_shape(dev, d, season=season)
-            per_sm = rk.blocks_per_sm(dev.index or 0, d, warps, season)
-            counts = mix.get(name, {})
+            row = kernel_facts(dev, regs, d, season)
+            counts = mix.get(row["kernel"], {})
             total = sum(counts.values())
-            row = {"kernel": name, "library": lib_path.name, **regs.get(name, {}),
-                   "drivers": d, "warps_per_block": warps, "blocks_per_sm": per_sm,
-                   "resident_warps_per_sm": per_sm * warps, "sass": counts, "sass_total": total}
+            row.update(library=lib_path.name, sass=counts, sass_total=total)
             rows.append(row)
             spills = row.get("spill_stores", "?"), row.get("spill_loads", "?")
-            print(f"[mix{label}] {name} (D={d}): {row.get('registers', '?')} registers, spill "
-                  f"stores/loads {spills[0]}/{spills[1]} B; {warps} warps x {per_sm} blocks = "
-                  f"{per_sm * warps} resident warps per SM; SASS {total} instructions: "
+            print(f"[mix{label}] {row['kernel']} (D={d}): {row.get('registers', '?')} registers, "
+                  f"spill stores/loads {spills[0]}/{spills[1]} B; {row['warps_per_block']} warps x "
+                  f"{row['blocks_per_sm']} blocks = {row['resident_warps_per_sm']} resident warps "
+                  f"per SM; SASS {total} instructions: "
                   + ", ".join(f"{k} {v} ({v / max(total, 1):.1%})" for k, v in counts.items())
                   + f" ({where})", flush=True)
     return rows
 
 
 @contextlib.contextmanager
-def using_library(lib, block_shapes=None):
+def using_library(lib):
     """The race kernel's wrappers launch from `lib` (a loaded library) inside
-    the block, their default launch shape picked from `block_shapes` (by
-    default `BLOCK_SHAPES`); the occupancy cache is emptied on the way in
-    and out."""
+    the block; the occupancy cache is emptied on the way in and out, so the
+    default launch shape is the one `lib`'s own occupancy query gives."""
     from monte_carlo_gp_torch.ops import race_kernel as rk
 
-    saved = rk._lib, rk.BLOCK_SHAPES
+    saved = rk._lib
     rk._lib = lib
-    rk.BLOCK_SHAPES = tuple(block_shapes or rk.BLOCK_SHAPES)
     rk.blocks_per_sm.cache_clear()
     try:
         yield
     finally:
-        rk._lib, rk.BLOCK_SHAPES = saved
+        rk._lib = saved
         rk.blocks_per_sm.cache_clear()
 
 
-def compare_against(dev, against: Path, where: str, old_shapes=None) -> dict:
+@contextlib.contextmanager
+def overtake_passes():
+    """Counts the overtake passes of the plain race version while the block
+    runs: one [live, swapping] pair per call of `race_counts_plain` (one per
+    race of `season_counts_plain`), each the number of simulation-passes in
+    which the pass was live (pass 1 always; a later pass when the one before
+    it swapped) or swapped, over every pass of every lap. The sums are
+    tensors on the inputs' device, read when the caller needs them."""
+    from monte_carlo_gp_torch.ops import race_kernel as rk
+
+    races = []
+    real_pass, real_race = rk._overtake_pass, rk.race_counts_plain
+
+    def count_pass(cum, pace, att, u, pass_active, *args):
+        out, swapped = real_pass(cum, pace, att, u, pass_active, *args)
+        live, swapping = races[-1]
+        races[-1] = [live + pass_active.sum(), swapping + swapped.sum()]
+        return out, swapped
+
+    def count_race(*args, **kwargs):
+        races.append([0, 0])
+        return real_race(*args, **kwargs)
+
+    rk._overtake_pass, rk.race_counts_plain = count_pass, count_race
+    try:
+        yield races
+    finally:
+        rk._overtake_pass, rk.race_counts_plain = real_pass, real_race
+
+
+def compare_against(dev, against: Path, where: str) -> dict:
     """The library built from `against` and the current one, in turns (old,
-    new, new, old) at each shape of AGAINST_K1 and AGAINST_K2. The old
-    library's default launch shape is picked from `old_shapes` (default
-    `BLOCK_SHAPES`): the block shapes that its wrappers offered."""
+    new, new, old) at each shape of AGAINST_K1 and AGAINST_K2, each at the
+    default launch shape its own occupancy query gives."""
     from monte_carlo_gp_torch.ops import race_kernel as rk
     from monte_carlo_gp_torch.ops._build import build_cuda_library
     from monte_carlo_gp_torch.validate import golden
@@ -230,10 +265,9 @@ def compare_against(dev, against: Path, where: str, old_shapes=None) -> dict:
     old_path = build_cuda_library("race_kernel_against", [against.name], src_dir=against.parent)
     new_path = rk.build()
     libs = {"old": rk.load_library(old_path), "new": rk._lib}
-    shapes = {"old": old_shapes, "new": None}
     mixes = {}
     for label, path in (("old", old_path), ("new", new_path)):
-        with using_library(libs[label], shapes[label]):
+        with using_library(libs[label]):
             mixes[label] = kernel_mix(dev, path, where, f" {label}")
 
     season = golden.load()
@@ -250,7 +284,7 @@ def compare_against(dev, against: Path, where: str, old_shapes=None) -> dict:
     for shape, fn in runs:
         times, counts = {"old": [], "new": []}, {}
         for label in ("old", "new", "new", "old"):
-            with using_library(libs[label], shapes[label]):
+            with using_library(libs[label]):
                 times[label].append(event_ms(fn))
                 counts[label] = fn()
         same = torch.equal(counts["old"], counts["new"])
@@ -464,8 +498,6 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description="Profile the race kernels on a CUDA GPU.")
     ap.add_argument("--mix", action="store_true", help="print only the kernels' mix")
     ap.add_argument("--against", type=Path, help="time another race_kernel.cu against this one")
-    ap.add_argument("--against-shapes", default=None,
-                    help="warps per block the other version's launch picks from, e.g. 8,4")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("profile_kernel: needs a CUDA device (torch.cuda.is_available() is False)")
@@ -476,8 +508,7 @@ def main(argv=None) -> None:
     print(f"[card] {where}", flush=True)
     lib_path = rk.build()
     if args.against:
-        old_shapes = args.against_shapes and [int(w) for w in args.against_shapes.split(",")]
-        print(json.dumps(compare_against(dev, args.against, where, old_shapes)), flush=True)
+        print(json.dumps(compare_against(dev, args.against, where)), flush=True)
         return
     mix = kernel_mix(dev, lib_path, where)
     if args.mix:

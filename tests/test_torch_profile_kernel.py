@@ -1,10 +1,24 @@
 """The kernel report of `monte_carlo_gp_torch.profile_kernel`: the SASS
 opcode mix read from `cuobjdump -sass` output and the registers and spills
-read from a `ptxas -v` report, on text in the tools' formats."""
+read from a `ptxas -v` report, on text in the tools' formats; and the count
+of overtake passes on the plain version, from which `chip_smoke.py` bounds
+the kernels' work."""
 
+import importlib.util
+from pathlib import Path
+
+import numpy as np
 import pytest
+import torch
 
 from monte_carlo_gp_torch import profile_kernel as pk
+from monte_carlo_gp_torch.config import sim_params_from_numpy
+from monte_carlo_gp_torch.ops import race_kernel as rk
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parents[1]
+PLAN_FIXTURE = ROOT / "tests" / "data" / "torch_plan_bahrain2024.npz"
 
 SASS = """
 \tcode for sm_90a
@@ -74,3 +88,57 @@ def test_ptxas_report_reads_registers_and_spills_per_kernel():
 ])
 def test_kernel_name_demangles_the_race_kernels(mangled, name):
     assert pk.kernel_name(mangled) == name
+
+
+def _plan_inputs():
+    with np.load(PLAN_FIXTURE) as f:
+        fields = {k: f[k] for k in f.files}
+    return rk.pack_inputs(sim_params_from_numpy(fields))
+
+
+def test_overtake_passes_counts_each_races_live_and_swapping_passes():
+    """A season of two races of the Bahrain plan (57 and 30 laps, 256
+    simulations each) gives one (live, swapping) pair per race: pass 1 of
+    every lap is live, a later pass only after one that swapped, so the live
+    passes are the laps plus the swaps of passes 1 and 2. Race 0 counts as
+    the single race of its seed does, and the plain version is restored."""
+    pmat, scal, grid_log = _plan_inputs()
+    n, laps, seeds = 256, [57, 30], [1, 2]
+    pair = lambda t: torch.stack([t, t])
+    real_race, real_pass = rk.race_counts_plain, rk._overtake_pass
+    with pk.overtake_passes() as races:
+        rk.season_counts_plain(pair(pmat), pair(scal), pair(grid_log), laps, n, seeds)
+    assert (rk.race_counts_plain, rk._overtake_pass) == (real_race, real_pass)
+    counts = [(int(live), int(swapping)) for live, swapping in races]
+    assert len(counts) == 2
+    for (live, swapping), lp in zip(counts, laps):
+        sim_laps = n * (lp - 1)
+        assert sim_laps < live < 3 * sim_laps
+        # what pass 3 swapped: the swapping passes that made no later pass live
+        assert 0 <= sim_laps + swapping - live <= swapping
+    with pk.overtake_passes() as single:
+        rk.race_counts_plain(pmat, scal, grid_log, laps[0], n, seed=seeds[0])
+    assert [(int(a), int(b)) for a, b in single] == counts[:1]
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("d, scan", [(20, 5), (32, 5), (40, 6), (128, 6)])
+def test_race_flops_counts_the_pass_work_of_the_run(d, scan):
+    """chip_smoke's operation count: with every pass live and swapping it is
+    61 + 3 x (11 + the prefix max's steps) per car and further lap; a dead
+    pass adds nothing, a live one 4 and a swapping one 7 + the steps more."""
+    smoke = _chip_smoke()
+    n, laps = 1_000, 57
+    passes = 3 * n * (laps - 1)
+    every = smoke.race_flops(d, laps, n, (passes, passes))
+    assert every == n * d * (17 * d + 49 + (laps - 1) * (61 + 3 * (11 + scan)))
+    base = smoke.race_flops(d, laps, n, (0, 0))
+    assert base == n * d * (17 * d + 49 + (laps - 1) * 61)
+    assert smoke.race_flops(d, laps, n, (1, 0)) - base == 4 * d
+    assert smoke.race_flops(d, laps, n, (1, 1)) - base == (11 + scan) * d

@@ -33,7 +33,18 @@ through its kernel:
     shards (`simulate_plan`, `simulate_season_plans`); a one-rank NCCL
     group through `initialize_distributed`; two processes on the card
     joined by gloo through `parallel/dryrun.py` at the main shape; and the
-    weekend and batched backtest CLIs with `--engine xla` on the lap engine.
+    weekend and batched backtest CLIs with `--engine xla` on the lap engine;
+  * the alternative qualifying models and the server: (a) the Bayesian
+    model's HMC fit of the synthetic archive (Bahrain 2024) on the card at
+    its default budget, through `F1Predictor(quali_model="bayesian")`,
+    bitwise equal to a second fit of the same seed and within total
+    variation 0.05 of a CPU fit in its pole distribution; (b) `python -m
+    monte_carlo_gp_torch.serve` on the card, with the Elo and then the
+    Bayesian model: 50 requests at 10,000 simulations and 10 at 1,048,576,
+    their p50/p95 latency, same-seed bodies identical and equal to the
+    weekend through F1Predictor in this process (one K1 launch); (c) the
+    gbm model: a weekend where scikit-learn imports, else the CLI's error
+    naming it.
 
 Every phase that fails raises and the script exits non-zero, and each
 prints its seconds. The last line
@@ -125,6 +136,16 @@ MUTATION_TIGHT_TV, MUTATION_BLOWN_TV = 0.012, 0.05
 MAIN_SHARDS = (1, 2, 3, 4)
 TWO_PROCESS_TIMEOUT_S = 300
 XLA_WEEKEND_SIMS, XLA_SEASON_SIMS = 262_144, 2_048
+# the Bayesian qualifying model's fit on the card at its default budget
+# (4 chains, 1000 + 1000 iterations, 48 leapfrog steps), held to a CPU fit of
+# the same seed at tests/test_torch_bayesian.py's bound between two samplers,
+# and its acceptance to the JAX tests' range. Split R-hat is printed, not
+# gated: on this archive the JAX fit itself reads 1.07-1.18 over seeds 42, 1
+# and 2 (a slow team_sigma direction), above the small world's 1.15 gate.
+BAYES_POLE_TV, BAYES_ACCEPT = 0.05, (0.6, 0.99)
+# the server: requests at its default count and at the main path's
+SERVE_SIMS, SERVE_REQUESTS, SERVE_BIG_REQUESTS, SERVE_SEED = 10_000, 50, 10, 7
+SERVE_TIMEOUT_S = 300
 
 # The roofline bound: the larger of the bytes each kernel must move over
 # the card's memory rate and its float32 operations over the card's float32
@@ -968,6 +989,293 @@ def xla_cli_phase(main_dist, batched_2024) -> None:
         raise AssertionError("the lap-engine backtest disagrees with the season kernel's")
 
 
+def percentile_ms(seconds: list[float], q: float) -> float:
+    return float(np.percentile(np.asarray(seconds) * 1e3, q))
+
+
+def cpu_fit(design_path: str, out_path: str) -> None:
+    """The CPU reference fit of `bayes_phase`, in a process of its own so
+    that it runs beside the card's fits: the pickled (design, seed) in, the
+    pickled (posterior, seconds) out, at 2 threads (~10^5 small ops, which
+    more threads only slow down)."""
+    import pickle
+
+    from monte_carlo_gp_torch.models import bayesian as B
+
+    torch.set_num_threads(2)
+    with open(design_path, "rb") as f:
+        design, seed = pickle.load(f)
+    t0 = time.perf_counter()
+    post = B.sample_posterior(design, seed=seed, device="cpu")
+    with open(out_path, "wb") as f:
+        pickle.dump((post, time.perf_counter() - t0), f)
+
+
+def start_cpu_fit(design, seed: int):
+    """Start `cpu_fit` of (design, seed) in a child process; returns (the
+    process, the path its result will be pickled to)."""
+    import pickle
+
+    work = SMOKE_CACHE / "cpu_fit"
+    work.mkdir(parents=True, exist_ok=True)
+    design_path, out_path = work / "design.pkl", work / "posterior.pkl"
+    with open(design_path, "wb") as f:
+        pickle.dump((design, seed), f)
+    code = f"import chip_smoke; chip_smoke.cpu_fit({str(design_path)!r}, {str(out_path)!r})"
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                            env={**os.environ, "PYTHONPATH": str(ROOT)})
+    return proc, out_path
+
+
+def bayes_phase(dev, design, cpu_run) -> dict:
+    """(a) The Bayesian qualifying model on the card: the weekend's plan
+    through `F1Predictor(quali_model="bayesian")`, whose HMC fit of the
+    synthetic archive (Bahrain 2024, `design`) runs on the card at the
+    default budget; a second fit with the same seed, bitwise equal; the CPU
+    fit of the same seed that `cpu_run` (`start_cpu_fit`) ran meanwhile, its
+    pole distribution within total variation 0.05; then the weekend's Monte
+    Carlo through K1 at the server's default count, the in-process result
+    the Bayesian server is held to. Returns the readings and that result."""
+    import pickle
+    import zlib
+
+    from monte_carlo_gp_torch.data.synthetic import SyntheticBackend
+    from monte_carlo_gp_torch.models import bayesian as B
+    from monte_carlo_gp_torch.models.predictor import F1Predictor
+    from monte_carlo_gp_torch.ops import race_kernel as rk
+    from monte_carlo_gp_torch.utils.profiling import Phase, timed_calls
+
+    t0 = time.perf_counter()
+    predictor = F1Predictor(cache_dir=SMOKE_CACHE / "bayes", backend=SyntheticBackend(seed=2718),
+                            device=dev, quali_model="bayesian")
+    model = predictor._bayes_model
+    timers = Phase()
+    with timed_calls(B, "sample_posterior", timers):
+        plan = predictor.prepare_weekend(2024, "Bahrain")
+    fit_s = timers.totals["sample_posterior"]
+    post = model._posterior
+    if not all(np.array_equal(getattr(post.design, f), getattr(design, f))
+               for f in design.__dataclass_fields__):
+        raise AssertionError("the predictor fitted another archive than the CPU reference's")
+    iters = model.num_warmup + model.num_samples
+    again, again_ms = plain_ms_of(lambda: B.sample_posterior(design, seed=model.seed, device=dev))
+    proc, out_path = cpu_run
+    if proc.wait(timeout=SERVE_TIMEOUT_S) != 0:
+        raise AssertionError(f"the CPU reference fit failed ({proc.returncode})")
+    with open(out_path, "rb") as f:
+        cpu, cpu_s = pickle.load(f)
+    same = np.array_equal(post.raw, again.raw)
+    rhat = float(B.split_rhat(post.raw).max())
+    circuit = predictor.data_loader._resolve_event(2024, "Bahrain")
+    q_laps = predictor.feature_engine.laps
+    teams = q_laps[q_laps["session_type"] == "Q"].groupby("Driver", sort=False)["Team"].last().to_dict()
+    seed = zlib.crc32(f"2024:{circuit}".encode())
+    on_card = B.quali_position_probs(post, plan.drivers, teams, circuit, seed)
+    on_cpu = B.quali_position_probs(cpu, plan.drivers, teams, circuit, seed)
+    tv = 0.5 * sum(abs(on_card[d][0] - on_cpu[d][0]) for d in plan.drivers)
+    grid = np.array([plan.quali_probs[d] for d in plan.drivers])
+    result, wall, k1, k2 = run_counted(rk, lambda: predictor.assemble_result(
+        plan, predictor.simulate_plan(plan, SERVE_SIMS, seed=SERVE_SEED)))
+    log(f"[bayes fit] synthetic archive before Bahrain 2024: {design.n_rows} rows, "
+        f"{post.raw.shape[2]} parameters; {post.raw.shape[0]} chains x {iters} iterations x 48 "
+        f"leapfrog steps on {dev}: fit {fit_s:.3f} s ({fit_s / iters * 1e3:.3f} ms per "
+        f"transition), again {again_ms / 1e3:.3f} s, bitwise equal {same}; on the CPU "
+        f"{cpu_s:.3f} s (2 threads, in a process beside the card's fits); acceptance "
+        f"{np.round(post.accept_rate, 4).tolist()}, max split R-hat {rhat:.4f}; pole TV card vs "
+        f"CPU {tv:.4f} (bound {BAYES_POLE_TV}); the weekend's grid rows sum to 1: "
+        f"{np.allclose(grid.sum(axis=1), 1.0, atol=1e-6)}; K1 launches {k1}, K2 {k2} at "
+        f"{SERVE_SIMS} sims; phase {time.perf_counter() - t0:.1f} s")
+    lo, hi = BAYES_ACCEPT
+    if not (same and np.isfinite(post.raw).all() and tv < BAYES_POLE_TV
+            and np.all((post.accept_rate > lo) & (post.accept_rate < hi))
+            and np.allclose(grid.sum(axis=1), 1.0, atol=1e-6) and (k1, k2) == (1, 0)):
+        raise AssertionError("the Bayesian fit on the card failed a check")
+    return {"rows": design.n_rows, "dim": int(post.raw.shape[2]), "fit_s": fit_s,
+            "s_per_transition": fit_s / iters, "again_s": again_ms / 1e3, "cpu_s": cpu_s,
+            "accept": post.accept_rate.tolist(), "rhat": rhat, "pole_tv_vs_cpu": tv,
+            "result": result}
+
+
+def _read_ready(proc, deadline: float) -> tuple[str, list[str]]:
+    """The server's base URL from its readiness line, and the lines before
+    it; raises when it dies or the deadline passes."""
+    import select
+
+    lines = []
+    while time.monotonic() < deadline:
+        ready, _, _ = select.select([proc.stdout], [], [], 1.0)
+        if not ready:
+            if proc.poll() is not None:
+                raise AssertionError(f"the server exited ({proc.returncode}) before serving")
+            continue
+        line = proc.stdout.readline()
+        if not line:
+            raise AssertionError(f"the server closed its output ({proc.poll()}) before serving")
+        lines.append(line.rstrip("\n"))
+        if line.startswith("Serving on "):
+            return line.split("Serving on ", 1)[1].strip(), lines
+    raise AssertionError("the server printed no readiness line in time")
+
+
+def _http(url: str, body: dict | None = None) -> tuple[int, bytes]:
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, method="GET" if body is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _probabilities(payload: dict) -> dict:
+    """A response's or a result's probabilities, position keys as JSON has
+    them."""
+    return {k: json.loads(json.dumps(payload[k])) for k in (
+        "pole_probabilities", "win_probabilities", "podium_probabilities", "full_distributions")}
+
+
+def serve_phase(dev, quali_model: str, in_process: dict) -> dict:
+    """(b) `python -m monte_carlo_gp_torch.serve --synthetic --port 0 --warm
+    2024:Bahrain` on the card with `quali_model`: the readiness line, /healthz
+    naming the card, 50 /predict requests at the default count and 10 at the
+    main path's, p50/p95 latency and the plan-cache hits; two same-seed
+    bodies byte-identical but for the server's latency, and their
+    probabilities equal to `in_process` (the weekend through F1Predictor on
+    the card in this process); then /invalidate and GET /."""
+    t0 = time.perf_counter()
+    work = SMOKE_CACHE / f"serve_{quali_model}"
+    work.mkdir(parents=True, exist_ok=True)
+    err_path = work / "server.log"
+    cmd = [sys.executable, "-m", "monte_carlo_gp_torch.serve", "--synthetic", "--port", "0",
+           "--warm", "2024:Bahrain", "--cache-dir", str(work / "cache"),
+           "--quali-model", quali_model, "--device", dev.type]
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(cmd, cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)},
+                                stdout=subprocess.PIPE, stderr=err, text=True, bufsize=1)
+        try:
+            base, startup = _read_ready(proc, time.monotonic() + SERVE_TIMEOUT_S)
+            start_s = time.perf_counter() - t0
+            warm = next((l for l in startup if l.startswith("warm 2024 Bahrain")), "")
+            status, body = _http(f"{base}/healthz")
+            health = json.loads(body)
+            name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else None
+            if status != 200 or health["platform"] != dev.type or health["device_name"] != name:
+                raise AssertionError(f"/healthz does not name the card: {health}")
+            lat, server_lat = {}, {}
+            for label, sims, count in (("default", SERVE_SIMS, SERVE_REQUESTS),
+                                       ("main", MAIN_SIMS, SERVE_BIG_REQUESTS)):
+                lat[label], server_lat[label] = [], []
+                for i in range(count):
+                    q0 = time.perf_counter()
+                    status, body = _http(f"{base}/predict", {
+                        "season": 2024, "race": "Bahrain", "seed": i, "n_simulations": sims})
+                    lat[label].append(time.perf_counter() - q0)
+                    payload = json.loads(body)
+                    if status != 200 or payload["server"]["n_simulations"] != sims:
+                        raise AssertionError(f"/predict failed ({status}): {payload}")
+                    server_lat[label].append(payload["server"]["latency_s"])
+            same_seed = [json.loads(_http(f"{base}/predict", {
+                "season": 2024, "race": "Bahrain", "seed": SERVE_SEED,
+                "n_simulations": SERVE_SIMS})[1]) for _ in range(2)]
+            for p in same_seed:
+                p["server"].pop("latency_s")
+            identical = json.dumps(same_seed[0]).encode() == json.dumps(same_seed[1]).encode()
+            equal = _probabilities(same_seed[0]) == _probabilities(in_process)
+            stats = json.loads(_http(f"{base}/stats")[1])
+            evicted = json.loads(_http(f"{base}/invalidate", {"race": "Bahrain"})[1])["evicted"]
+            page_status, page = _http(f"{base}/")
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+    reading = {"quali_model": quali_model, "startup_s": start_s, "warm": warm,
+               "plan_cache_hits": stats["plan_cache_hits"], "requests": stats["requests"]}
+    for label in lat:
+        reading[f"{label}_p50_ms"] = percentile_ms(lat[label], 50)
+        reading[f"{label}_p95_ms"] = percentile_ms(lat[label], 95)
+        reading[f"{label}_server_p50_ms"] = percentile_ms(server_lat[label], 50)
+    log(f"[serve {quali_model}] {' '.join(cmd[2:])}: ready in {start_s:.1f} s ({warm}); /healthz "
+        f"{health['platform']} {health['device_name']}; {SERVE_REQUESTS} requests at {SERVE_SIMS} "
+        f"sims: p50 {reading['default_p50_ms']:.2f} ms, p95 {reading['default_p95_ms']:.2f} ms "
+        f"(server-side p50 {reading['default_server_p50_ms']:.2f} ms); {SERVE_BIG_REQUESTS} at "
+        f"{MAIN_SIMS}: p50 {reading['main_p50_ms']:.2f} ms, p95 {reading['main_p95_ms']:.2f} ms "
+        f"(server-side p50 {reading['main_server_p50_ms']:.2f} ms); plan-cache hits "
+        f"{stats['plan_cache_hits']} of {stats['requests']} requests; same-seed bodies identical "
+        f"but for the latency: {identical}; equal to the in-process weekend on the card: {equal}; "
+        f"/invalidate evicted {evicted}; GET / {page_status} ({len(page)} bytes); phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not (identical and equal and evicted == 1 and page_status == 200
+            and stats["ok"] == SERVE_REQUESTS + SERVE_BIG_REQUESTS + 2 and stats["errors"] == 0):
+        raise AssertionError(f"the {quali_model} server failed a check (log: {err_path})")
+    return reading
+
+
+def gbm_phase(dev) -> str:
+    """(c) The gradient-boosting qualifying model: a weekend through the CLI
+    where scikit-learn imports; otherwise the CLI must exit with an error
+    naming scikit-learn. Returns which of the two happened."""
+    from monte_carlo_gp_torch.__main__ import run as run_cli
+
+    t0 = time.perf_counter()
+    args = [*MAIN_ARGS, "--quali-model", "gbm", "--cache-dir", str(SMOKE_CACHE / "gbm")]
+    args[args.index("--simulations") + 1] = str(SERVE_SIMS)
+    if importlib.util.find_spec("sklearn") is not None:
+        results, _ = run_cli(args)
+        pole = sum(results["pole_probabilities"].values())
+        log(f"[gbm] scikit-learn imports: the weekend ran with --quali-model gbm on {dev}; pole "
+            f"probabilities sum to {pole:.6f}; phase {time.perf_counter() - t0:.1f} s")
+        if abs(pole - 1.0) > 1e-6:
+            raise AssertionError("the gbm weekend's pole probabilities are not a distribution")
+        return "ran"
+    try:
+        run_cli(args)
+    except SystemExit as e:
+        said = str(e.code)
+    else:
+        raise AssertionError("--quali-model gbm ran without scikit-learn")
+    log(f"[gbm] scikit-learn is not installed: --quali-model gbm exits with {said!r}; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not (said.startswith("Error:") and "scikit-learn" in said):
+        raise AssertionError("--quali-model gbm did not exit naming scikit-learn")
+    return "refused"
+
+
+def alt_models_and_serving_phases(dev) -> dict:
+    """Phases (a)-(c): the Bayesian fit, the server with the Elo and the
+    Bayesian qualifying models, the gbm model. Returns their readings."""
+    from monte_carlo_gp_torch.data.synthetic import SyntheticBackend
+    from monte_carlo_gp_torch.models import bayesian as B
+    from monte_carlo_gp_torch.models.predictor import F1Predictor
+    from monte_carlo_gp_torch.ops import race_kernel as rk
+
+    t0 = time.perf_counter()
+    elo = F1Predictor(cache_dir=SMOKE_CACHE / "serve_in_process", backend=SyntheticBackend(seed=2718),
+                      device=dev)
+    elo_result, _, k1, k2 = run_counted(rk, lambda: elo.predict_weekend(
+        2024, "Bahrain", n_simulations=SERVE_SIMS, seed=SERVE_SEED))
+    if (k1, k2) != (1, 0):
+        raise AssertionError("the in-process weekend did not launch K1 once")
+    # the archive the Bayesian predictor fits (the same world and clock)
+    design = B.build_quali_design(elo.feature_engine.laps)
+    cpu_run = start_cpu_fit(design, B.BayesianQualiModel().seed)
+    try:
+        bayes = bayes_phase(dev, design, cpu_run)
+    finally:
+        if cpu_run[0].poll() is None:
+            cpu_run[0].kill()
+            cpu_run[0].wait()
+    serving = [serve_phase(dev, "elo", elo_result), serve_phase(dev, "bayesian", bayes.pop("result"))]
+    gbm = gbm_phase(dev)
+    log(f"[phase] the alternative qualifying models and the server: {time.perf_counter() - t0:.1f} s")
+    return {"bayes": bayes, "serve": serving, "gbm": gbm}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA GPU")
@@ -1127,7 +1435,9 @@ def main() -> None:
     k1["wide"] = k1_wide
     engine_phase(dev)
     mutation_phase(dev)
+    alt = alt_models_and_serving_phases(dev)
     log(f"[phase] all: {time.perf_counter() - START:.1f} s")
+    log("[alternative models and serving] " + json.dumps(alt))
     log(json.dumps({"kernels": [k1, k2, sharded]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -81,7 +81,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--quali-model", choices=["elo", "bayesian", "gbm"], default="elo",
-        help="Qualifying model; only 'elo' is ported so far",
+        help="Qualifying model: Elo, the Bayesian hierarchical model (HMC on "
+             "--device) or gradient boosting (needs scikit-learn)",
     )
     parser.add_argument(
         "--rookie-prior", action="store_true",
@@ -139,10 +140,10 @@ def run(argv: list[str] | None = None):
     if not args.race and not args.build_cache:
         parser.error("--race is required unless --build-cache is given")
     try:
-        # refuses --device cuda without a CUDA device, and the quali
-        # models not yet ported
+        # refuses --device cuda without a CUDA device, and gbm without
+        # scikit-learn
         predictor = build_predictor(args)
-    except (RuntimeError, NotImplementedError) as e:
+    except (RuntimeError, ImportError) as e:
         sys.exit(f"Error: {e}")
 
     if args.build_cache:

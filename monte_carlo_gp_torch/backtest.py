@@ -86,7 +86,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--quali-model", choices=["elo", "bayesian", "gbm"], default="elo",
-        help="Qualifying model; only 'elo' is ported so far",
+        help="Qualifying model: Elo, the Bayesian hierarchical model (HMC on "
+             "--device) or gradient boosting (needs scikit-learn)",
     )
     return parser
 
@@ -123,10 +124,10 @@ def run(argv: list[str] | None = None) -> dict:
 
     predictor_factory = predictor_factory_for(args)
     try:
-        # refuses --device cuda without a CUDA device, and the quali models
-        # not yet ported, before any work
+        # refuses --device cuda without a CUDA device, and gbm without
+        # scikit-learn, before any work
         predictor_factory()
-    except (RuntimeError, NotImplementedError) as e:
+    except (RuntimeError, ImportError) as e:
         sys.exit(f"Error: {e}")
 
     print(f"\n{'='*60}")

@@ -17,13 +17,15 @@ devices when it has more than one shard (`parallel/`). The lap count is a
 runtime argument of the kernel, so there are no lap-count buckets, and it
 runs exactly the requested number of simulations.
 
-Only the Elo qualifying model is ported; the Bayesian and gradient-boosting
-models are still to port (ROADMAP.md, queue A item 7).
+The qualifying grid comes from the Elo model, or from one of the two
+alternative models (`quali_model="bayesian"`, whose HMC fit runs on the
+predictor's device, or `"gbm"`, host code that needs scikit-learn).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -85,6 +87,21 @@ def resolve_device(device: str | torch.device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unknown device {str(device)!r} (use 'cuda' or 'cpu')")
     return dev
+
+
+def _alt_quali_model(quali_model: str, device: torch.device):
+    """The alternative qualifying model `quali_model` names, None for
+    "elo". The Bayesian model fits on `device`; the gbm model raises
+    ImportError naming scikit-learn where it cannot be imported."""
+    if quali_model == "bayesian":
+        from monte_carlo_gp_torch.models.bayesian import BayesianQualiModel
+
+        return BayesianQualiModel(device=device)
+    if quali_model == "gbm":
+        from monte_carlo_gp_torch.models.ml import GBMQualiModel
+
+        return GBMQualiModel()
+    return None
 
 
 ENGINES = ("auto", "xla", "pallas")
@@ -150,12 +167,11 @@ class F1Predictor:
                 f"unknown quali_model {quali_model!r} "
                 "(use 'elo', 'bayesian' or 'gbm')"
             )
-        if quali_model != "elo":
-            raise NotImplementedError(
-                f"quali_model={quali_model!r} is not yet ported to "
-                "monte_carlo_gp_torch (ROADMAP.md, queue A item 7); use 'elo'"
-            )
         self.device = resolve_device(device)
+        self._quali_model = quali_model
+        # built now, so that a model that cannot run here (gbm without
+        # scikit-learn) fails the construction and not a weekend
+        self._bayes_model = _alt_quali_model(quali_model, self.device)
         self.engine = resolve_engine(engine)
         self.mesh = mesh
         self.data_loader = F1DataLoader(
@@ -318,11 +334,22 @@ class F1Predictor:
         if actual_grid and prediction_point in ("quali", "sprint"):
             quali_probs = self._grid_to_probs(drivers, actual_grid)
         else:
-            quali_features = {
-                d: self.feature_engine.calculate_quali_features(d, race)
-                for d in drivers
-            }
-            quali_probs = self._predict_quali(drivers, quali_features)
+            quali_probs = None
+            if self._quali_model != "elo":
+                # The alternative models match circuits exactly against the
+                # archive's resolved event names, so a short name
+                # ('Bahrain') is resolved first; unresolved, it would
+                # silently zero the circuit signal.
+                circuit = self.data_loader._resolve_event(season, race)
+                quali_probs = self._predict_quali_alt(
+                    drivers, circuit, season, weekend_teams
+                )
+            if quali_probs is None:
+                quali_features = {
+                    d: self.feature_engine.calculate_quali_features(d, race)
+                    for d in drivers
+                }
+                quali_probs = self._predict_quali(drivers, quali_features)
         if grid_penalties:
             quali_probs = self._adjust_for_penalties(quali_probs, grid_penalties)
 
@@ -473,6 +500,47 @@ class F1Predictor:
         return {
             d: from_frame.get(d) or cfg.DRIVER_TEAMS.get(d) for d in drivers
         }
+
+    def _predict_quali_alt(
+        self,
+        drivers: list[str],
+        race: str,
+        season: int,
+        driver_teams: dict[str, str | None] | None = None,
+    ) -> dict[str, list[float]] | None:
+        """The qualifying grid from the alternative model, fitted on the
+        historical qualifying archive. Returns None, and logs why, when the
+        archive cannot support a fit (an empty archive, or the model's
+        ValueError), so that prepare_weekend takes the Elo path instead of
+        failing the weekend.
+
+        Deterministic: the fit is cached per archive build with a fixed
+        seed, and the grid noise is seeded with crc32 of "season:race"
+        (never Python's hash, which varies per process)."""
+        laps = self.feature_engine.laps
+        if laps.empty:
+            log_event(
+                "alt_quali_fallback",
+                model=self._quali_model,
+                reason="empty_archive",
+                race=race,
+            )
+            return None
+        noise_seed = zlib.crc32(f"{season}:{race}".encode())
+        if driver_teams is None:
+            driver_teams = {d: cfg.DRIVER_TEAMS.get(d) for d in drivers}
+        try:
+            return self._bayes_model.predict(
+                laps, drivers, driver_teams, circuit=race, seed=noise_seed
+            )
+        except ValueError as e:
+            log_event(
+                "alt_quali_fallback",
+                model=self._quali_model,
+                reason=str(e),
+                race=race,
+            )
+            return None
 
     def _predict_quali(
         self, drivers: list[str], features: dict

@@ -350,18 +350,49 @@ def test_cli_runs_the_batched_season_on_cpu(tmp_path):
         assert section in proc.stdout, section
 
 
+@pytest.mark.parametrize("batched", [False, True], ids=["sequential", "batched"])
+def test_cli_runs_the_backtest_with_gbm_on_cpu(batched, tmp_path, monkeypatch, capsys, caplog):
+    """`--quali-model gbm` through the CLI's entry point on the three-race
+    world, sequential and batched: the gbm grid in every race (one fit per
+    walk-forward archive, no Elo fallback), the printed sections."""
+    import logging
+
+    from monte_carlo_gp_torch import backtest as backtest_cli
+    from monte_carlo_gp_torch.data import synthetic
+
+    world = synthetic.SyntheticBackend
+    monkeypatch.setattr(synthetic, "SyntheticBackend",
+                        lambda seed: world(seed=seed, n_events=N_EVENTS))
+    with caplog.at_level(logging.INFO, logger="mcgp"):
+        results = backtest_cli.run(["--synthetic", "--seasons", "2024", "--simulations", "256",
+                                    "--device", "cpu", "--quali-model", "gbm",
+                                    "--cache-dir", str(tmp_path), *(["--batched"] * batched)])
+    records = [r.getMessage() for r in caplog.records]
+    out = capsys.readouterr().out
+    assert results["n_races"] == N_EVENTS
+    for section in (f"Races analyzed: {N_EVENTS}", "BRIER SCORES", "PODIUM ACCURACY",
+                    "Backtest complete!"):
+        assert section in out, section
+    assert sum(r.startswith("gbm_quali_fit") for r in records) == N_EVENTS
+    assert not any(r.startswith("alt_quali_fallback") for r in records)
+
+
 @pytest.mark.parametrize(
     "args, says",
     [(["--batched", "--checkpoint", "f.jsonl", "--device", "cpu"], "not supported with --batched"),
      (["--device", "cuda"], "Error:"),
-     (["--device", "cpu", "--quali-model", "gbm"], "not yet ported")],
+     (["--device", "cpu", "--quali-model", "gbm"], "scikit-learn")],
     ids=["batched_checkpoint", "cuda_without_gpu", "alt_quali_model"],
 )
 def test_cli_refuses_what_it_cannot_run(args, says, tmp_path):
     """No fallback: --device cuda without a CUDA device exits non-zero, as
-    do the parts not yet ported and the flags that do not go together."""
+    do gbm where scikit-learn cannot be imported (hidden here) and the
+    flags that do not go together."""
+    from tests.test_torch_predictor import sklearn_shadow
+
     proc = _run_cli(["--synthetic", "--seasons", "2024", *args], tmp_path,
-                    CUDA_VISIBLE_DEVICES="")
+                    CUDA_VISIBLE_DEVICES="",
+                    PYTHONPATH=os.pathsep.join([sklearn_shadow(tmp_path), str(ROOT)]))
     assert proc.returncode != 0
     assert says in proc.stderr + proc.stdout
     assert "Backtest complete!" not in proc.stdout
@@ -392,3 +423,20 @@ def test_checkpoint_lines_are_json_records(sequential_run):
     assert [r["season"] for r in recs] == [SEASON] * N_EVENTS
     assert {"pole_probabilities", "win_probabilities", "podium_probabilities"} == set(
         recs[0]["prediction"])
+
+
+@pytest.mark.slow
+def test_alt_quali_models_beat_elo_pole_brier(tmp_path):
+    """The walk-forward pole-Brier gate of tests/test_validation.py:409-462
+    on the port, on the CPU: the synthetic 2024 season (seed 2718, 20
+    races), gbm and Bayesian (300 + 300 HMC iterations) each under 0.02 and
+    under half the Elo grid's pole Brier. The Bayesian leg on the card is in
+    tests/test_torch_bayesian_gpu.py."""
+    from torch_quali_world import GATE_ABS, GATE_REL, alt_quali_pole_briers
+
+    briers = alt_quali_pole_briers(tmp_path, ("elo", "gbm", "bayesian"), "cpu",
+                                   bayes_budget=dict(num_warmup=300, num_samples=300))
+    print(f"pole Brier on the CPU: {briers}")
+    for model in ("gbm", "bayesian"):
+        assert briers[model] < GATE_ABS, briers
+        assert briers[model] < GATE_REL * briers["elo"], briers

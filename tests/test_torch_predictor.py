@@ -121,13 +121,47 @@ def test_predict_weekend_matches_jax_xla_engine(plans):
     )
 
 
-def test_alternative_quali_models_are_not_yet_ported():
+def hide_sklearn(monkeypatch):
+    """Make scikit-learn unimportable in this process."""
+    for name in [m for m in sys.modules if m == "sklearn" or m.startswith("sklearn.")]:
+        monkeypatch.delitem(sys.modules, name)
+    monkeypatch.setitem(sys.modules, "sklearn", None)
+
+
+def sklearn_shadow(tmp_path) -> str:
+    """A directory whose `sklearn` package raises ImportError, to put first
+    on a child process's PYTHONPATH."""
+    pkg = tmp_path / "no_sklearn" / "sklearn"
+    pkg.mkdir(parents=True)
+    (pkg / "__init__.py").write_text("raise ImportError('No module named sklearn')\n")
+    return str(pkg.parent)
+
+
+def test_alternative_quali_models_are_not_yet_ported(monkeypatch, tmp_path):
+    """Both alternative qualifying models construct on the CPU, the Bayesian
+    one on the predictor's device; gbm without scikit-learn fails at
+    construction with an error naming it, and the CLI exits with Error:."""
+    from monte_carlo_gp_torch.__main__ import run
+    from monte_carlo_gp_torch.models.bayesian import BayesianQualiModel
+    from monte_carlo_gp_torch.models.ml import GBMQualiModel
     from monte_carlo_gp_torch.models.predictor import F1Predictor
 
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        F1Predictor(device="cpu", quali_model="bayesian")
+    bayes = F1Predictor(cache_dir=tmp_path, device="cpu", quali_model="bayesian")
+    assert isinstance(bayes._bayes_model, BayesianQualiModel)
+    assert bayes._bayes_model.device == torch.device("cpu")
+    assert isinstance(F1Predictor(cache_dir=tmp_path, device="cpu", quali_model="gbm")._bayes_model,
+                      GBMQualiModel)
+    assert F1Predictor(cache_dir=tmp_path, device="cpu")._bayes_model is None
     with pytest.raises(ValueError):
-        F1Predictor(device="cpu", quali_model="nope")
+        F1Predictor(cache_dir=tmp_path, device="cpu", quali_model="nope")
+
+    hide_sklearn(monkeypatch)
+    with pytest.raises(ImportError, match="scikit-learn"):
+        F1Predictor(cache_dir=tmp_path, device="cpu", quali_model="gbm")
+    with pytest.raises(SystemExit) as exit_:
+        run(["--race", RACE, "--season", str(SEASON), "--synthetic", "--device", "cpu",
+             "--quali-model", "gbm", "--cache-dir", str(tmp_path)])
+    assert str(exit_.value.code).startswith("Error:") and "scikit-learn" in str(exit_.value.code)
 
 
 def _run_cli(args, cwd, **env):
@@ -141,10 +175,11 @@ def _run_cli(args, cwd, **env):
     )
 
 
-def test_cli_runs_the_weekend_on_cpu(tmp_path):
+@pytest.mark.parametrize("quali_model", ["elo", "gbm"])
+def test_cli_runs_the_weekend_on_cpu(quali_model, tmp_path):
     proc = _run_cli(
         ["--race", RACE, "--season", str(SEASON), "--synthetic", "--device", "cpu",
-         "--simulations", "2048"],
+         "--simulations", "2048", "--quali-model", quali_model],
         tmp_path,
     )
     assert proc.returncode == 0, proc.stderr
@@ -153,24 +188,30 @@ def test_cli_runs_the_weekend_on_cpu(tmp_path):
         "PODIUM PROBABILITIES", "Prediction complete!",
     ):
         assert section in proc.stdout
+    assert ("gbm_quali_fit" in proc.stderr) == (quali_model == "gbm")
+    assert "alt_quali_fallback" not in proc.stderr
 
 
 @pytest.mark.parametrize(
-    "args",
-    [["--device", "cuda"], ["--device", "cpu", "--quali-model", "gbm"],
-     ["--device", "cpu", "--trace", "out"]],
+    "args, says",
+    [(["--device", "cuda"], "Error:"),
+     (["--device", "cpu", "--quali-model", "gbm"], "scikit-learn"),
+     (["--device", "cpu", "--trace", "out"], "Error:")],
     ids=["cuda_without_gpu", "alt_quali_model", "trace"],
 )
-def test_cli_refuses_what_it_cannot_run(args, tmp_path):
+def test_cli_refuses_what_it_cannot_run(args, says, tmp_path):
     """No fallback: --device cuda without a CUDA device exits non-zero, as
-    do the parts not yet ported."""
+    do gbm where scikit-learn cannot be imported (hidden here) and the
+    parts not yet ported."""
     proc = _run_cli(
         ["--race", RACE, "--season", str(SEASON), "--synthetic", *args],
         tmp_path,
         CUDA_VISIBLE_DEVICES="",
+        PYTHONPATH=os.pathsep.join([sklearn_shadow(tmp_path), str(ROOT)]),
     )
     assert proc.returncode != 0
     assert "Error:" in proc.stderr + proc.stdout
+    assert says in proc.stderr + proc.stdout
     assert "Prediction complete!" not in proc.stdout
 
 

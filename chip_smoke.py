@@ -44,7 +44,18 @@ through its kernel:
     their p50/p95 latency, same-seed bodies identical and equal to the
     weekend through F1Predictor in this process (one K1 launch); (c) the
     gbm model: a weekend where scikit-learn imports, else the CLI's error
-    naming it.
+    naming it;
+  * the last modules of the port: (d) `python -m
+    monte_carlo_gp_torch.precompile --season-races 20` in a child with a
+    fresh MCGP_COMPILE_CACHE (the cold build, one K1 and one K2 launch),
+    then a weekend CLI in a second child that finds the library built, and
+    a cold weekend with MCGP_COMPILE_CACHE=0 to compare it with; (e) the
+    main path's weekend with `--trace DIR` and without, bitwise equal, the
+    trace holding K1 as a device event, with the device's busy share and
+    K1's device time read from it; (f) the walkthrough
+    (`monte_carlo_gp_torch.examples.weekend_walkthrough`) at its default
+    count: its four sections, K1 once per weekend, the season on the lap
+    engine.
 
 Every phase that fails raises and the script exits non-zero, and each
 prints its seconds. The last line
@@ -53,14 +64,17 @@ line before it is the card's name and power limit, and the one before that
 lists the kernels, with their launches on their path, their error against
 the plain version, their times and their bounds, the golden check, their
 registers (ptxas) and the warps resident on an SM at their launch shape
-(with a `wide` list of the same readings at each wide field, and the
-sharded entry's readings at each shard count). Without a CUDA device it
+(with a `wide` list of the same readings at each wide field, the
+sharded entry's readings at each shard count, and each kernel's launches on
+every path that drives it, `launches_by_path`). Without a CUDA device it
 exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
+import io
 import json
 import math
 import os
@@ -68,6 +82,7 @@ import shutil
 import socket
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -146,6 +161,18 @@ BAYES_POLE_TV, BAYES_ACCEPT = 0.05, (0.6, 0.99)
 # the server: requests at its default count and at the main path's
 SERVE_SIMS, SERVE_REQUESTS, SERVE_BIG_REQUESTS, SERVE_SEED = 10_000, 50, 10, 7
 SERVE_TIMEOUT_S = 300
+
+# the prebuild step (phase d): its cold build in a fresh MCGP_COMPILE_CACHE,
+# then a weekend CLI in a second process that must find the library built
+PREBUILD_ARGS = ["--simulations", "10000", "--season-races", "20"]
+PREBUILD_WEEKEND_ARGS = ["--race", "Bahrain", "--season", "2024", "--synthetic", "--timings"]
+PREBUILD_TIMEOUT_S = 600
+BUILD_NOTE = "(includes the kernel build)"
+# the walkthrough's sections (phase f), one "predicted" line per race of its
+# six-race synthetic season
+WALKTHROUGH_SECTIONS = ("=== FP2 prediction", "takes an engine penalty ===",
+                        "=== post-quali (actual grid) ===", "=== season batch")
+WALKTHROUGH_RACES = 6
 
 # The roofline bound: the larger of the bytes each kernel must move over
 # the card's memory rate and its float32 operations over the card's float32
@@ -1276,6 +1303,154 @@ def alt_models_and_serving_phases(dev) -> dict:
     return {"bayes": bayes, "serve": serving, "gbm": gbm}
 
 
+def _precompile_event(stderr: str) -> dict:
+    """The `precompile` event a child logged with MCGP_LOG_JSON=1."""
+    for line in stderr.splitlines():
+        if '"event": "precompile"' in line:
+            return json.loads(line[line.index("{"):])
+    raise AssertionError(f"the prebuild step logged no precompile event:\n{stderr[-2000:]}")
+
+
+def _child(args: list[str], cache: str, timeout: float = PREBUILD_TIMEOUT_S):
+    """(the completed `python -m <args>` in a child on the card with
+    MCGP_COMPILE_CACHE=`cache`, its wall seconds)."""
+    env = {**os.environ, "MCGP_COMPILE_CACHE": cache, "MCGP_LOG_JSON": "1",
+           "PYTHONPATH": str(ROOT)}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m {' '.join(args)} exited {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    return proc, wall
+
+
+def prebuild_phase() -> dict:
+    """Phase (d): `python -m monte_carlo_gp_torch.precompile` in a child with
+    a fresh MCGP_COMPILE_CACHE builds the library and launches K1 and K2
+    once; a weekend CLI in a second child with the same cache builds
+    nothing; a weekend CLI with MCGP_COMPILE_CACHE=0 (a build directory of
+    its own) is the cold first weekend it is compared with. Returns the
+    readings, with the launches the prebuild child logged."""
+    t0 = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    cache = tempfile.mkdtemp(prefix="prebuild-", dir=ROOT / "build")
+    try:
+        proc, cold_s = _child(["monte_carlo_gp_torch.precompile", *PREBUILD_ARGS], cache)
+        event = _precompile_event(proc.stderr)
+        libs = sorted(p.name for p in (Path(cache) / "kernels").glob("*.so"))
+        log(f"[prebuild] {proc.stdout.strip()}; child wall {cold_s:.2f} s; libraries {libs}; "
+            f"K1 launches {event['k1_launches']}, K2 {event['k2_launches']}")
+        if (event["libraries"], event["programs"], len(libs)) != (1, 2, 1) or (
+                event["k1_launches"], event["k2_launches"]) != (1, 1):
+            raise AssertionError("the prebuild step did not build the library and launch K1 and K2")
+        weekend = ["monte_carlo_gp_torch", *PREBUILD_WEEKEND_ARGS,
+                   "--cache-dir", str(SMOKE_CACHE / "prebuild_weekend")]
+        warm, warm_s = _child(weekend, cache)
+        after = sorted(p.name for p in (Path(cache) / "kernels").glob("*.so"))
+        rate = [line.strip() for line in warm.stdout.splitlines() if "sims/sec" in line]
+        if not rate or BUILD_NOTE in rate[0] or after != libs:
+            raise AssertionError(f"the weekend after the prebuild step built the kernels: {rate}")
+        weekend[weekend.index("--cache-dir") + 1] = str(SMOKE_CACHE / "cold_weekend")
+        cold, cold_weekend_s = _child(weekend, "0")
+        cold_rate = [line.strip() for line in cold.stdout.splitlines() if "sims/sec" in line]
+        if not cold_rate or BUILD_NOTE not in cold_rate[0]:
+            raise AssertionError(f"the weekend with MCGP_COMPILE_CACHE=0 did not build: {cold_rate}")
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    log(f"[prebuild] first weekend after the prebuild step: wall {warm_s:.2f} s ({rate[0]}); "
+        f"a cold first weekend (MCGP_COMPILE_CACHE=0): wall {cold_weekend_s:.2f} s "
+        f"({cold_rate[0]}); the step itself {cold_s:.2f} s; phase {time.perf_counter() - t0:.1f} s")
+    return {"prebuild_s": cold_s, "warm_weekend_s": warm_s, "cold_weekend_s": cold_weekend_s,
+            "k1_launches": event["k1_launches"], "k2_launches": event["k2_launches"]}
+
+
+def trace_phase(dev) -> dict:
+    """Phase (e): the main path's weekend through the CLI with `--trace DIR`
+    and without, in this process: bitwise equal results, a trace file that
+    holds K1 as a device event, the device's busy share of the weekend and
+    K1's device time from the trace (`device_times_us`)."""
+    from monte_carlo_gp_torch.__main__ import run as run_cli
+    from monte_carlo_gp_torch.ops import race_kernel as rk
+    from monte_carlo_gp_torch.utils import profiling
+
+    t0 = time.perf_counter()
+    trace_dir = SMOKE_CACHE / "trace"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    kept = []
+    real_trace = profiling.trace
+
+    @contextlib.contextmanager
+    def keep(*args, **kwargs):
+        with real_trace(*args, **kwargs) as t:
+            kept.append(t)
+            yield t
+
+    def args_for(cache: str) -> list[str]:
+        args = list(MAIN_ARGS)
+        args[args.index("--cache-dir") + 1] = str(SMOKE_CACHE / cache)
+        return args
+
+    profiling.trace = keep
+    try:
+        (traced, timers), wall, k1, k2 = run_counted(
+            rk, lambda: run_cli(args_for("trace_on") + ["--trace", str(trace_dir)]))
+    finally:
+        profiling.trace = real_trace
+    (untraced, _), _, k1_off, _ = run_counted(rk, lambda: run_cli(args_for("trace_off")))
+    (t,) = kept
+    same = traced["full_distributions"] == untraced["full_distributions"]
+    with open(t.path) as f:
+        events = json.load(f)["traceEvents"]
+    k1_events = [e for e in events if e.get("cat") == "kernel" and "race_kernel" in e.get("name", "")]
+    kernel_us, device_us = profiling.device_times_us(t.profile)
+    top = ", ".join(f"{name[:40]} {us / 1e3:.3f} ms" for name, us in
+                    profiling.device_time_by_name(t.profile))
+    weekend_s = timers.totals["prepare (data + Elo + features)"] + timers.totals["simulate (Monte Carlo)"]
+    busy = device_us / 1e6 / weekend_s
+    log(f"[trace] --trace {trace_dir.name}/: {t.path.name}, {t.path.stat().st_size:,} bytes, "
+        f"{t.device_events} device events, {len(k1_events)} K1 kernel event(s); K1 launches {k1} "
+        f"(untraced {k1_off}), K2 {k2}; K1 device {kernel_us / 1e3:.3f} ms of {device_us / 1e3:.3f} "
+        f"ms device work; the weekend (prepare + simulate) {weekend_s:.3f} s, device busy "
+        f"{100 * busy:.2f}%; device time by event: {top}; traced and untraced results bitwise equal: {same}; wall {wall:.2f} s; "
+        f"phase {time.perf_counter() - t0:.1f} s")
+    if not same:
+        raise AssertionError("the traced weekend's result differs from the untraced one")
+    if (k1, k2, k1_off) != (1, 0, 1) or not k1_events or kernel_us <= 0:
+        raise AssertionError("the trace does not hold K1 as a device event")
+    return {"k1_launches": k1, "k1_device_ms": kernel_us / 1e3, "device_ms": device_us / 1e3,
+            "busy_share": busy, "trace_bytes": t.path.stat().st_size}
+
+
+def walkthrough_phase(dev) -> dict:
+    """Phase (f): `python -m monte_carlo_gp_torch.examples.weekend_walkthrough`
+    on the card at its default count, in this process: it returns, prints
+    its four sections and a line per race, and launches K1 once for each of
+    its three weekends (its season runs on the lap engine, as the JAX
+    example's does)."""
+    from monte_carlo_gp_torch.examples import weekend_walkthrough
+    from monte_carlo_gp_torch.ops import engine
+    from monte_carlo_gp_torch.ops import race_kernel as rk
+
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    engine.engine_counts.calls = 0
+    with contextlib.redirect_stdout(out):
+        _, wall, k1, k2 = run_counted(rk, lambda: weekend_walkthrough.main(
+            ["--device", "cuda", "--cache-dir", str(SMOKE_CACHE / "walkthrough")]))
+    text = out.getvalue()
+    calls = engine.engine_counts.calls
+    missing = [s for s in WALKTHROUGH_SECTIONS if s not in text]
+    log(f"[walkthrough] sections missing {missing}; {text.count(' predicted ')} race lines; K1 "
+        f"launches {k1}, K2 {k2}, lap-engine calls {calls}; wall {wall:.2f} s; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    log(text.rstrip())
+    if missing or text.count(" predicted ") != WALKTHROUGH_RACES or (k1, k2) != (3, 0) or calls < 1:
+        raise AssertionError("the walkthrough did not run its four steps on the card")
+    return {"k1_launches": k1, "k2_launches": k2, "engine_calls": calls, "wall_s": wall}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA GPU")
@@ -1436,6 +1611,15 @@ def main() -> None:
     engine_phase(dev)
     mutation_phase(dev)
     alt = alt_models_and_serving_phases(dev)
+    t0 = time.perf_counter()
+    prebuild = prebuild_phase()
+    traced = trace_phase(dev)
+    walk = walkthrough_phase(dev)
+    log(f"[phase] the prebuild step, the trace and the walkthrough: {time.perf_counter() - t0:.1f} s")
+    k1["launches_by_path"] = {"weekend": k1["launches"], "prebuild": prebuild["k1_launches"],
+                              "trace": traced["k1_launches"], "walkthrough": walk["k1_launches"]}
+    k2["launches_by_path"] = {"batched backtest": k2["launches"],
+                              "prebuild": prebuild["k2_launches"], "walkthrough": walk["k2_launches"]}
     log(f"[phase] all: {time.perf_counter() - START:.1f} s")
     log("[alternative models and serving] " + json.dumps(alt))
     log(json.dumps({"kernels": [k1, k2, sharded]}))

@@ -12,6 +12,7 @@ Examples:
     python -m monte_carlo_gp_torch --race Bahrain --season 2024 --synthetic --device cpu
     python -m monte_carlo_gp_torch --race Bahrain --season 2024 --synthetic --engine xla
     python -m monte_carlo_gp_torch --race Monaco --prediction-point fp3 --simulations 100000
+    python -m monte_carlo_gp_torch --race Bahrain --season 2024 --synthetic --trace traces/
     python -m monte_carlo_gp_torch --build-cache --seasons 2023 2024
 """
 
@@ -96,7 +97,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--trace", type=str, default=None, metavar="DIR",
-        help="Profiler trace of the prediction (not yet ported)",
+        help="Write a profiler trace of the prediction to DIR (torch.profiler; "
+             "TensorBoard's profile plugin and Perfetto open it)",
     )
     parser.add_argument(
         "--timings", action="store_true",
@@ -129,14 +131,12 @@ def build_predictor(args):
 def run(argv: list[str] | None = None):
     """Run the CLI on `argv`; returns (result dict, phase timers), the result
     being None for --build-cache."""
-    from monte_carlo_gp_torch.utils.profiling import Phase, phase_report
+    from monte_carlo_gp_torch.utils.profiling import Phase, TraceError, phase_report, trace
 
     timers = Phase()
     parser = build_parser()
     args = parser.parse_args(argv)
 
-    if args.trace:
-        sys.exit("Error: --trace is not yet ported to monte_carlo_gp_torch (ROADMAP.md)")
     if not args.race and not args.build_cache:
         parser.error("--race is required unless --build-cache is given")
     try:
@@ -165,15 +165,16 @@ def run(argv: list[str] | None = None):
 
         builds_kernel = not race_kernel.is_built()
     try:
-        with timers("prepare (data + Elo + features)"):
-            plan = predictor.prepare_weekend(
-                season=args.season,
-                race=args.race,
-                prediction_point=args.prediction_point,
-            )
-        with timers("simulate (Monte Carlo)"):
-            probs = predictor.simulate_plan(plan, args.simulations, args.seed)
-        results = predictor.assemble_result(plan, probs)
+        with trace(args.trace, predictor.device) as traced:
+            with timers("prepare (data + Elo + features)"):
+                plan = predictor.prepare_weekend(
+                    season=args.season,
+                    race=args.race,
+                    prediction_point=args.prediction_point,
+                )
+            with timers("simulate (Monte Carlo)"):
+                probs = predictor.simulate_plan(plan, args.simulations, args.seed)
+            results = predictor.assemble_result(plan, probs)
     except ValueError as e:
         from monte_carlo_gp_torch.models.safety import (
             InsufficientDataError,
@@ -194,6 +195,10 @@ def run(argv: list[str] | None = None):
         else:
             print(f"Error: {e}")
             sys.exit(1)
+    except TraceError as e:
+        sys.exit(f"Error: {e}")
+    if traced is not None and traced.path is not None:
+        print(f"Trace: {traced.path} ({traced.device_events} device events)")
     if args.timings:
         print()
         print(phase_report(timers))

@@ -311,19 +311,6 @@ def event_ms(fn, repeats: int = 3) -> float:
     return start.elapsed_time(end) / repeats
 
 
-def device_times_us(prof, kernel_name: str = "race_kernel") -> tuple[float, float]:
-    """(the named kernel, all device work) self device time in microseconds."""
-    kernel = total = 0.0
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", None)
-        if t is None:
-            t = getattr(e, "self_cuda_time_total", 0.0)
-        total += t
-        if kernel_name in e.key:
-            kernel += t
-    return kernel, total
-
-
 def new_predictor(dev, name: str):
     """A predictor of the synthetic world on a cache directory of its own,
     emptied first, so no data or Elo cache carries over between runs."""
@@ -340,7 +327,7 @@ def new_predictor(dev, name: str):
 def profile_weekend(dev) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
-    from monte_carlo_gp_torch.utils.profiling import Phase
+    from monte_carlo_gp_torch.utils.profiling import Phase, device_times_us
 
     # warm-up on its own predictor: the kernel build and load and the CUDA
     # context stay out of the profile; the data and Elo caches do not carry over
@@ -372,7 +359,7 @@ def profile_season_backtest(dev) -> dict:
     small season launch that loads the season kernel."""
     from torch.profiler import ProfilerActivity, profile
 
-    from monte_carlo_gp_torch.utils.profiling import Phase, timed_calls
+    from monte_carlo_gp_torch.utils.profiling import Phase, device_times_us, timed_calls
     from monte_carlo_gp_torch.validate import backtest as bt
 
     warm = new_predictor(dev, "season-warm-up")

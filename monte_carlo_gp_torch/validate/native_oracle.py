@@ -3,7 +3,9 @@
 rules, used to hold the race kernel's distributions to a tight bound.
 
 The library is built with g++ at first use into `build/native/` at the
-repository root (git-ignored), under a name keyed on a hash of the source.
+repository root (git-ignored), under a name keyed on a hash of the source;
+`MCGP_COMPILE_CACHE` moves it as it moves the CUDA libraries
+(`ops/_build.build_dir`).
 """
 
 from __future__ import annotations
@@ -17,10 +19,10 @@ from pathlib import Path
 import numpy as np
 
 from monte_carlo_gp_torch.config import SimParams
+from monte_carlo_gp_torch.ops._build import build_dir
 
 _ROOT = Path(__file__).resolve().parents[2]
 _SOURCE = _ROOT / "native" / "oracle.cpp"
-_BUILD_DIR = _ROOT / "build" / "native"
 _GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 _lib = None
 
@@ -32,15 +34,19 @@ MUT_NO_FRONT_ROW_START_CLAMP = 1
 MUT_NO_TWO_COMPOUND_RULE = 2
 
 
+def library_path() -> Path:
+    """Where the oracle library of the current source is (or would be) built."""
+    key = hashlib.sha256(_SOURCE.read_bytes() + " ".join(_GXX_FLAGS).encode()).hexdigest()[:16]
+    return build_dir("native") / f"liboracle-{key}.so"
+
+
 def _load():
     global _lib
     if _lib is not None:
         return _lib
-    src = _SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(_GXX_FLAGS).encode()).hexdigest()[:16]
-    path = _BUILD_DIR / f"liboracle-{key}.so"
+    path = library_path()
     if not path.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        path.parent.mkdir(parents=True, exist_ok=True)
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
         proc = subprocess.run(
             ["g++", *_GXX_FLAGS, "-o", str(tmp), str(_SOURCE)],

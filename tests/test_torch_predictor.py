@@ -196,13 +196,13 @@ def test_cli_runs_the_weekend_on_cpu(quali_model, tmp_path):
     "args, says",
     [(["--device", "cuda"], "Error:"),
      (["--device", "cpu", "--quali-model", "gbm"], "scikit-learn"),
-     (["--device", "cpu", "--trace", "out"], "Error:")],
+     (["--device", "cuda", "--trace", "out"], "Error:")],
     ids=["cuda_without_gpu", "alt_quali_model", "trace"],
 )
 def test_cli_refuses_what_it_cannot_run(args, says, tmp_path):
-    """No fallback: --device cuda without a CUDA device exits non-zero, as
-    do gbm where scikit-learn cannot be imported (hidden here) and the
-    parts not yet ported."""
+    """No fallback: --device cuda without a CUDA device exits non-zero, with
+    or without --trace (no CPU trace stands in for a card's), as does gbm
+    where scikit-learn cannot be imported (hidden here)."""
     proc = _run_cli(
         ["--race", RACE, "--season", str(SEASON), "--synthetic", *args],
         tmp_path,
@@ -213,6 +213,7 @@ def test_cli_refuses_what_it_cannot_run(args, says, tmp_path):
     assert "Error:" in proc.stderr + proc.stdout
     assert says in proc.stderr + proc.stdout
     assert "Prediction complete!" not in proc.stdout
+    assert not (tmp_path / "out").exists()
 
 
 def test_profile_script_refuses_to_run_without_a_gpu(tmp_path):
@@ -229,7 +230,9 @@ def test_profile_script_refuses_to_run_without_a_gpu(tmp_path):
     assert proc.stdout == ""
 
 
-SEASON_PATH_MODULES = (
+MUST_IMPORT = (
+    "monte_carlo_gp_torch.precompile",
+    "monte_carlo_gp_torch.examples.weekend_walkthrough",
     "monte_carlo_gp_torch.backtest",
     "monte_carlo_gp_torch.tune",
     "monte_carlo_gp_torch.validate.backtest",
@@ -246,7 +249,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "    importlib.import_module(m.name)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'monte_carlo_gp_tpu')]\n"
         "assert not bad, bad\n"
-        f"missing = [m for m in {SEASON_PATH_MODULES!r} if m not in sys.modules]\n"
+        f"missing = [m for m in {MUST_IMPORT!r} if m not in sys.modules]\n"
         "assert not missing, missing\n"
         "print(len([k for k in sys.modules if k.startswith('monte_carlo_gp_torch')]))\n"
     )
@@ -254,7 +257,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 15 + len(SEASON_PATH_MODULES)
+    assert int(proc.stdout.strip()) >= 15 + len(MUST_IMPORT)
 
 
 if __name__ == "__main__":

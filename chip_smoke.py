@@ -36,9 +36,11 @@ through its kernel:
     weekend and batched backtest CLIs with `--engine xla` on the lap engine;
   * the alternative qualifying models and the server: (a) the Bayesian
     model's HMC fit of the synthetic archive (Bahrain 2024) on the card at
-    its default budget, through `F1Predictor(quali_model="bayesian")`,
-    bitwise equal to a second fit of the same seed and within total
-    variation 0.05 of a CPU fit in its pole distribution; (b) `python -m
+    its default budget, through `F1Predictor(quali_model="bayesian")`, each
+    of its 2,000 transitions a replay of one captured CUDA graph, bitwise
+    equal to the eager fit of the same seed on the card and to three more
+    graphed fits (whose peak reserved memory must not grow), and within
+    total variation 0.05 of a CPU fit in its pole distribution; (b) `python -m
     monte_carlo_gp_torch.serve` on the card, with the Elo and then the
     Bayesian model: 50 requests at 10,000 simulations and 10 at 1,048,576,
     their p50/p95 latency, same-seed bodies identical and equal to the
@@ -1058,11 +1060,15 @@ def bayes_phase(dev, design, cpu_run) -> dict:
     """(a) The Bayesian qualifying model on the card: the weekend's plan
     through `F1Predictor(quali_model="bayesian")`, whose HMC fit of the
     synthetic archive (Bahrain 2024, `design`) runs on the card at the
-    default budget; a second fit with the same seed, bitwise equal; the CPU
-    fit of the same seed that `cpu_run` (`start_cpu_fit`) ran meanwhile, its
-    pole distribution within total variation 0.05; then the weekend's Monte
-    Carlo through K1 at the server's default count, the in-process result
-    the Bayesian server is held to. Returns the readings and that result."""
+    default budget, every transition a replay of one captured CUDA graph
+    (2,000 replays); the same seed's eager fit on the card (the plain
+    version), bitwise equal in `raw` and `accept_rate`; three more graphed
+    fits in a row, bitwise equal, the device memory reserved at their peak
+    not growing after the first; the CPU fit of the same seed that
+    `cpu_run` (`start_cpu_fit`) ran meanwhile, its pole distribution within
+    total variation 0.05; then the weekend's Monte Carlo through K1 at the
+    server's default count, the in-process result the Bayesian server is
+    held to. Returns the readings and that result."""
     import pickle
     import zlib
 
@@ -1076,22 +1082,39 @@ def bayes_phase(dev, design, cpu_run) -> dict:
     predictor = F1Predictor(cache_dir=SMOKE_CACHE / "bayes", backend=SyntheticBackend(seed=2718),
                             device=dev, quali_model="bayesian")
     model = predictor._bayes_model
-    timers = Phase()
-    with timed_calls(B, "sample_posterior", timers):
-        plan = predictor.prepare_weekend(2024, "Bahrain")
-    fit_s = timers.totals["sample_posterior"]
-    post = model._posterior
-    if not all(np.array_equal(getattr(post.design, f), getattr(design, f))
-               for f in design.__dataclass_fields__):
-        raise AssertionError("the predictor fitted another archive than the CPU reference's")
     iters = model.num_warmup + model.num_samples
-    again, again_ms = plain_ms_of(lambda: B.sample_posterior(design, seed=model.seed, device=dev))
+    timers = Phase()
+    with timed_calls(B, "sample_posterior", timers), timed_calls(B, "GraphedTransition", timers):
+        B.transition_replays = 0
+        plan, prepare_ms = plain_ms_of(lambda: predictor.prepare_weekend(2024, "Bahrain"))
+        replays = [B.transition_replays]
+        fit_s = timers.totals["sample_posterior"]
+        capture_s = [timers.totals["GraphedTransition"]]
+        post = model._posterior
+        if not all(np.array_equal(getattr(post.design, f), getattr(design, f))
+                   for f in design.__dataclass_fields__):
+            raise AssertionError("the predictor fitted another archive than the CPU reference's")
+        eager, eager_ms = plain_ms_of(
+            lambda: B.sample_posterior(design, seed=model.seed, device=dev, plain=True))
+        bitwise = (np.array_equal(post.raw, eager.raw)
+                   and np.array_equal(post.accept_rate, eager.accept_rate))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        again_s, peaks, same = [], [], True
+        for _ in range(3):
+            B.transition_replays = 0
+            before = timers.totals["GraphedTransition"]
+            again, again_ms = plain_ms_of(lambda: B.sample_posterior(design, seed=model.seed, device=dev))
+            replays.append(B.transition_replays)
+            capture_s.append(timers.totals["GraphedTransition"] - before)
+            again_s.append(again_ms / 1e3)
+            peaks.append(torch.cuda.max_memory_reserved(dev))
+            same = same and np.array_equal(post.raw, again.raw)
     proc, out_path = cpu_run
     if proc.wait(timeout=SERVE_TIMEOUT_S) != 0:
         raise AssertionError(f"the CPU reference fit failed ({proc.returncode})")
     with open(out_path, "rb") as f:
         cpu, cpu_s = pickle.load(f)
-    same = np.array_equal(post.raw, again.raw)
     rhat = float(B.split_rhat(post.raw).max())
     circuit = predictor.data_loader._resolve_event(2024, "Bahrain")
     q_laps = predictor.feature_engine.laps
@@ -1103,22 +1126,36 @@ def bayes_phase(dev, design, cpu_run) -> dict:
     grid = np.array([plan.quali_probs[d] for d in plan.drivers])
     result, wall, k1, k2 = run_counted(rk, lambda: predictor.assemble_result(
         plan, predictor.simulate_plan(plan, SERVE_SIMS, seed=SERVE_SEED)))
+    eager_s = eager_ms / 1e3
     log(f"[bayes fit] synthetic archive before Bahrain 2024: {design.n_rows} rows, "
         f"{post.raw.shape[2]} parameters; {post.raw.shape[0]} chains x {iters} iterations x 48 "
-        f"leapfrog steps on {dev}: fit {fit_s:.3f} s ({fit_s / iters * 1e3:.3f} ms per "
-        f"transition), again {again_ms / 1e3:.3f} s, bitwise equal {same}; on the CPU "
-        f"{cpu_s:.3f} s (2 threads, in a process beside the card's fits); acceptance "
+        f"leapfrog steps on {dev}: graphed fit {fit_s:.3f} s ({fit_s / iters * 1e3:.3f} ms per "
+        f"transition; warm-up runs and capture {capture_s[0] * 1e3:.1f} ms; {replays[0]} replays) "
+        f"inside the Bayesian weekend's prepare of {prepare_ms / 1e3:.3f} s; the eager fit of the "
+        f"same seed on the card {eager_s:.3f} s ({eager_s / iters * 1e3:.3f} ms per transition), "
+        f"graphed bitwise equal to it (raw and accept_rate): {bitwise}; three graphed fits again "
+        f"{', '.join(f'{x:.3f}' for x in again_s)} s (capture "
+        f"{', '.join(f'{x * 1e3:.1f}' for x in capture_s[1:])} ms; replays {replays[1:]}), bitwise "
+        f"equal {same}, max memory reserved after each {peaks} B; on the CPU {cpu_s:.3f} s (2 "
+        f"threads, in a process beside the card's fits); acceptance "
         f"{np.round(post.accept_rate, 4).tolist()}, max split R-hat {rhat:.4f}; pole TV card vs "
         f"CPU {tv:.4f} (bound {BAYES_POLE_TV}); the weekend's grid rows sum to 1: "
         f"{np.allclose(grid.sum(axis=1), 1.0, atol=1e-6)}; K1 launches {k1}, K2 {k2} at "
         f"{SERVE_SIMS} sims; phase {time.perf_counter() - t0:.1f} s")
     lo, hi = BAYES_ACCEPT
+    if not (bitwise and replays == [iters] * 4):
+        raise AssertionError("the graphed fit is not the eager fit replayed through its graph")
+    if max(peaks[1:]) > peaks[0]:
+        raise AssertionError(f"the device memory reserved grew over graphed fits: {peaks}")
     if not (same and np.isfinite(post.raw).all() and tv < BAYES_POLE_TV
             and np.all((post.accept_rate > lo) & (post.accept_rate < hi))
             and np.allclose(grid.sum(axis=1), 1.0, atol=1e-6) and (k1, k2) == (1, 0)):
         raise AssertionError("the Bayesian fit on the card failed a check")
     return {"rows": design.n_rows, "dim": int(post.raw.shape[2]), "fit_s": fit_s,
-            "s_per_transition": fit_s / iters, "again_s": again_ms / 1e3, "cpu_s": cpu_s,
+            "s_per_transition": fit_s / iters, "replays": replays, "capture_s": capture_s,
+            "prepare_s": prepare_ms / 1e3, "eager_s": eager_s,
+            "eager_s_per_transition": eager_s / iters, "graphed_equals_eager": bitwise,
+            "again_s": again_s, "max_memory_reserved": peaks, "cpu_s": cpu_s,
             "accept": post.accept_rate.tolist(), "rhat": rhat, "pole_tv_vs_cpu": tv,
             "result": result}
 

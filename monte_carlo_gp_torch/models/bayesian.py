@@ -31,6 +31,14 @@ indexed adds, whose float32 atomics on CUDA would make the posterior vary
 from run to run. Every random number is drawn up front from a CPU
 `torch.Generator` seeded with `seed`, so the same seed gives bitwise the
 same posterior on a device, and a CPU and a CUDA fit draw the same numbers.
+
+On a CUDA device one HMC transition (about 1,550 small launches) is
+captured once per fit as a CUDA graph (`GraphedTransition`) and replayed
+for every iteration of the schedule, the counterpart of the JAX model's one
+compiled program; the adaptation between transitions stays eager. The CPU
+runs the schedule eagerly, and that eager schedule is the plain version
+the graph is held to bitwise (`sample_posterior(..., plain=True)` runs it
+on any device).
 """
 
 from __future__ import annotations
@@ -268,11 +276,125 @@ def _hmc_transition(theta, lp, eps, inv_mass, logp_fn, grad_fn, n_leapfrog, z, u
     return theta, lp, alpha
 
 
-def _warmup_stage(theta, logp_fn, grad_fn, n_leapfrog: int, inv_mass, eps0, draws):
-    """One warmup stage over len(draws[0]) iterations: each chain's step
-    size dual-averaged at a fixed `inv_mass`, and a Welford variance of its
-    draws over the stage's second half (the next stage's and the sampler's
-    diagonal mass). Returns (theta, lp, eps, var, mean alpha)."""
+@dataclasses.dataclass(frozen=True)
+class TransitionBuffers:
+    """The static tensors of one transition: its inputs theta (chains, dim),
+    lp (chains,), eps (chains,), inv_mass (chains, dim), z (chains, dim),
+    u_jit and u_acc (chains,), and its outputs, written back into theta and
+    lp, with alpha (chains,)."""
+
+    theta: torch.Tensor
+    lp: torch.Tensor
+    eps: torch.Tensor
+    inv_mass: torch.Tensor
+    z: torch.Tensor
+    u_jit: torch.Tensor
+    u_acc: torch.Tensor
+    alpha: torch.Tensor
+
+    @classmethod
+    def zeros(cls, chains: int, dim: int, device) -> "TransitionBuffers":
+        """Buffers holding a finite placeholder state (theta 0, step 0.1,
+        unit mass), so that runs before the first real inputs stay finite."""
+        f32 = dict(dtype=torch.float32, device=device)
+        return cls(
+            theta=torch.zeros(chains, dim, **f32), lp=torch.zeros(chains, **f32),
+            eps=torch.full((chains,), 0.1, **f32), inv_mass=torch.ones(chains, dim, **f32),
+            z=torch.zeros(chains, dim, **f32), u_jit=torch.zeros(chains, **f32),
+            u_acc=torch.zeros(chains, **f32), alpha=torch.zeros(chains, **f32),
+        )
+
+    def load(self, theta, lp, eps, inv_mass, z, u_jit, u_acc) -> None:
+        """Copy a transition's inputs into the buffers (a buffer passed as
+        its own input is left as it is)."""
+        for dst, src in ((self.theta, theta), (self.lp, lp), (self.eps, eps),
+                         (self.inv_mass, inv_mass), (self.z, z), (self.u_jit, u_jit),
+                         (self.u_acc, u_acc)):
+            if dst is not src:
+                dst.copy_(src)
+
+
+def _transition_into(buf: TransitionBuffers, logp_fn, grad_fn, n_leapfrog: int) -> None:
+    """`_hmc_transition` on the inputs in `buf`, its (theta', lp', alpha)
+    copied back into buf.theta, buf.lp and buf.alpha: what the CUDA graph
+    records. Every buffer keeps its storage, so a replay reads and writes
+    the same addresses."""
+    theta, lp, alpha = _hmc_transition(
+        buf.theta, buf.lp, buf.eps, buf.inv_mass, logp_fn, grad_fn, n_leapfrog,
+        buf.z, buf.u_jit, buf.u_acc,
+    )
+    buf.theta.copy_(theta)
+    buf.lp.copy_(lp)
+    buf.alpha.copy_(alpha)
+
+
+# replays of a captured transition in this process (`GraphedTransition`)
+transition_replays = 0
+# eager runs of the captured function before its capture
+_GRAPH_WARMUP_RUNS = 3
+
+
+class GraphedTransition:
+    """One HMC transition of (chains, dim) float32 chains on a CUDA device,
+    captured once as a CUDA graph and replayed per call; a call takes and
+    returns what `_hmc_transition` does, bitwise.
+
+    The graph holds all of `_hmc_transition`: the momentum from z, the step
+    jitter, the leapfrog trajectory with its gradients, logp of the
+    proposal, the kinetic energies, alpha and the accept. It reads the
+    static inputs of `TransitionBuffers` and the design tensors that
+    `logp_fn` and `grad_fn` close over, by address: those stay alive with
+    the graph. A call copies its inputs into the buffers, replays on the
+    current stream and returns the buffers (theta, lp, alpha), which the
+    next call overwrites. Products stay full float32, as in the eager
+    transition: the graph records whatever `torch.backends.cuda.matmul.
+    allow_tf32` (False by default) selects at capture. A capture that fails
+    raises; there is no eager fallback. `close` releases the graph and its
+    memory pool."""
+
+    def __init__(self, logp_fn, grad_fn, n_leapfrog: int, chains: int, dim: int, device):
+        self.buf = TransitionBuffers.zeros(chains, dim, device)
+        self.graph = torch.cuda.CUDAGraph()
+        capture = torch.cuda.graph(self.graph)
+
+        def record():
+            _transition_into(self.buf, logp_fn, grad_fn, n_leapfrog)
+
+        # Warm-up on the capture stream, outside the capture: cuBLAS takes
+        # its handle and this stream's workspace here. The buffers hold only
+        # the placeholder state; every call loads its own inputs.
+        stream, current = capture.capture_stream, torch.cuda.current_stream(device)
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            for _ in range(_GRAPH_WARMUP_RUNS):
+                record()
+        current.wait_stream(stream)
+        with capture:
+            record()
+
+    def __call__(self, theta, lp, eps, inv_mass, z, u_jit, u_acc):
+        global transition_replays
+        buf = self.buf
+        buf.load(theta, lp, eps, inv_mass, z, u_jit, u_acc)
+        self.graph.replay()
+        transition_replays += 1
+        return buf.theta, buf.lp, buf.alpha
+
+    def close(self) -> None:
+        """Wait for the replays, then free the graph and return its private
+        memory pool to the device."""
+        torch.cuda.synchronize(self.buf.theta.device)
+        self.graph.reset()
+        torch.cuda.empty_cache()
+
+
+def _warmup_stage(theta, logp_fn, step, inv_mass, eps0, draws):
+    """One warmup stage over len(draws[0]) iterations, each a
+    `step(theta, lp, eps, inv_mass, z, u_jit, u_acc) -> (theta, lp, alpha)`:
+    each chain's step size dual-averaged at a fixed `inv_mass`, and a
+    Welford variance of its draws over the stage's second half (the next
+    stage's and the sampler's diagonal mass). Returns (theta, lp, eps, var,
+    mean alpha)."""
     z, u_jit, u_acc = draws
     n_iters = z.shape[0]
     half = n_iters // 2
@@ -286,10 +408,7 @@ def _warmup_stage(theta, logp_fn, grad_fn, n_leapfrog: int, inv_mass, eps0, draw
     w_m2 = torch.zeros_like(theta)
     alpha_sum = torch.zeros_like(eps0)
     for it in range(n_iters):
-        theta, lp, alpha = _hmc_transition(
-            theta, lp, torch.exp(log_eps), inv_mass, logp_fn, grad_fn, n_leapfrog,
-            z[it], u_jit[it], u_acc[it],
-        )
+        theta, lp, alpha = step(theta, lp, torch.exp(log_eps), inv_mass, z[it], u_jit[it], u_acc[it])
         alpha_sum = alpha_sum + alpha
         m = it + 1.0
         h_bar = (1.0 - 1.0 / (m + _DA_T0)) * h_bar + (_TARGET_ACCEPT - alpha) / (m + _DA_T0)
@@ -306,11 +425,11 @@ def _warmup_stage(theta, logp_fn, grad_fn, n_leapfrog: int, inv_mass, eps0, draw
     return theta, lp, torch.exp(log_eps_bar), var, alpha_sum / n_iters
 
 
-def _run_chains(theta0, logp_fn, grad_fn, n_warmup: int, n_samples: int, n_leapfrog: int, draws):
-    """The full schedule of every chain: two warmup stages (identity mass,
-    then the first stage's Welford mass), then sampling at a fixed step
-    size and mass. Returns (samples (samples, chains, dim), accept rate
-    (chains,))."""
+def _schedule(theta0, logp_fn, step, n_warmup: int, n_samples: int, draws):
+    """The full schedule of every chain, each transition a `step` (see
+    `_warmup_stage`): two warmup stages (identity mass, then the first
+    stage's Welford mass), then sampling at a fixed step size and mass.
+    Returns (samples (samples, chains, dim), accept rate (chains,))."""
     w1 = max(n_warmup // 2, 1)
     w2 = max(n_warmup - w1, 1)
     stage1 = tuple(a[:w1] for a in draws)
@@ -319,19 +438,36 @@ def _run_chains(theta0, logp_fn, grad_fn, n_warmup: int, n_samples: int, n_leapf
     chains = theta0.shape[0]
     eps0 = torch.full((chains,), 0.1, dtype=torch.float32, device=theta0.device)
     theta, _, eps, var, _ = _warmup_stage(
-        theta0, logp_fn, grad_fn, n_leapfrog, torch.ones_like(theta0), eps0, stage1
+        theta0, logp_fn, step, torch.ones_like(theta0), eps0, stage1
     )
     inv_mass = var  # the optimal diagonal M^-1 is about the posterior variance
-    theta, lp, eps, _, _ = _warmup_stage(theta, logp_fn, grad_fn, n_leapfrog, inv_mass, eps, stage2)
+    theta, lp, eps, _, _ = _warmup_stage(theta, logp_fn, step, inv_mass, eps, stage2)
     samples = torch.empty((n_samples, *theta.shape), dtype=theta.dtype, device=theta.device)
     alpha_sum = torch.zeros_like(eps)
     for i in range(n_samples):
-        theta, lp, alpha = _hmc_transition(
-            theta, lp, eps, inv_mass, logp_fn, grad_fn, n_leapfrog, z[i], u_jit[i], u_acc[i]
-        )
+        theta, lp, alpha = step(theta, lp, eps, inv_mass, z[i], u_jit[i], u_acc[i])
         samples[i] = theta
         alpha_sum = alpha_sum + alpha
     return samples, alpha_sum / n_samples
+
+
+def _run_chains(theta0, logp_fn, grad_fn, n_warmup: int, n_samples: int, n_leapfrog: int, draws,
+                plain: bool = False):
+    """`_schedule` with `n_leapfrog` steps per transition. On a CUDA device
+    each transition is a replay of one `GraphedTransition`, released before
+    this returns; on the CPU, or with `plain`, it is `_hmc_transition` run
+    eagerly."""
+    if not theta0.is_cuda or plain:
+        def step(theta, lp, eps, inv_mass, z, u_jit, u_acc):
+            return _hmc_transition(theta, lp, eps, inv_mass, logp_fn, grad_fn, n_leapfrog,
+                                   z, u_jit, u_acc)
+
+        return _schedule(theta0, logp_fn, step, n_warmup, n_samples, draws)
+    graphed = GraphedTransition(logp_fn, grad_fn, n_leapfrog, *theta0.shape, theta0.device)
+    try:
+        return _schedule(theta0, logp_fn, graphed, n_warmup, n_samples, draws)
+    finally:
+        graphed.close()
 
 
 def chain_draws(seed: int, num_chains: int, dim: int, n_iters: int):
@@ -374,10 +510,15 @@ def sample_posterior(
     num_leapfrog: int = 48,
     seed: int = 42,
     device: str | torch.device = "cuda",
+    *,
+    plain: bool = False,
 ) -> QualiPosterior:
     """Fit the hierarchical model on `device` (a CUDA device raises where
     there is none). The same seed on the same device gives bitwise the same
-    `raw`."""
+    `raw`. On a CUDA device every transition replays one captured graph
+    (`GraphedTransition`, counted in `transition_replays`); `plain` runs
+    them eagerly there too, the plain version that the graphed fit equals
+    bitwise. The CPU always runs them eagerly."""
     dev = torch.device(device)
     logp_fn, grad_fn, sizes = make_log_posterior(design, dev)
     dim = _param_dim(design)
@@ -391,7 +532,8 @@ def sample_posterior(
         theta0 = (torch.from_numpy(offsets) + 0.1 * init).to(dev)
         draws = tuple(a.to(dev) for a in draws)
         samples, accept = _run_chains(
-            theta0, logp_fn, grad_fn, int(num_warmup), int(num_samples), int(num_leapfrog), draws
+            theta0, logp_fn, grad_fn, int(num_warmup), int(num_samples), int(num_leapfrog), draws,
+            plain=plain,
         )
         raw = samples.transpose(0, 1).cpu().numpy()  # (chains, samples, dim)
         accept = accept.cpu().numpy()

@@ -1,4 +1,6 @@
-"""The Bayesian qualifying model's HMC fit on a CUDA device: the same seed
+"""The Bayesian qualifying model's HMC fit on a CUDA device: the graphed
+fit (every transition a replay of one captured CUDA graph) is bitwise the
+eager fit of the same seed, and releases its graph; the same seed
 twice gives bitwise the same posterior, a CUDA fit agrees with a CPU fit of
 the same seed at the statistical tolerances the CPU tests hold the port to
 against the JAX package (tests/test_torch_bayesian.py), and the Bayesian leg
@@ -43,6 +45,47 @@ def pole_tv(a, b, drivers, teams, circuit, seed=3) -> float:
     pa = B.quali_position_probs(a, drivers, teams, circuit, seed=seed)
     pb = B.quali_position_probs(b, drivers, teams, circuit, seed=seed)
     return 0.5 * float(sum(abs(pa[d][0] - pb[d][0]) for d in drivers))
+
+
+@pytest.mark.gpu
+def test_graphed_fit_equals_eager_fit_bitwise(cuda_device):
+    """200 + 100 transitions: 300 replays of the graph, and `raw` and
+    `accept_rate` bitwise those of the same seed's eager fit on the card."""
+    design = B.build_quali_design(world()[0])
+    B.transition_replays = 0
+    graphed = B.sample_posterior(design, num_warmup=200, num_samples=100, seed=7, device=cuda_device)
+    assert B.transition_replays == 300
+    eager = B.sample_posterior(design, num_warmup=200, num_samples=100, seed=7, device=cuda_device,
+                               plain=True)
+    assert B.transition_replays == 300  # the plain version replays nothing
+    assert np.array_equal(graphed.raw, eager.raw)
+    assert np.array_equal(graphed.accept_rate, eager.accept_rate)
+    assert np.isfinite(graphed.raw).all()
+
+
+@pytest.mark.gpu
+def test_graphed_fits_release_their_graph(cuda_device):
+    """Three graphed fits in a row: the memory reserved, at the peak and
+    after each fit, does not grow after the first, and once the cache is
+    emptied nothing of the fits stays reserved (a fit before them makes
+    what lives for the process, such as cuBLAS's workspaces)."""
+    design = B.build_quali_design(world()[0])
+    B.sample_posterior(design, num_warmup=20, num_samples=10, seed=7, device=cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved(cuda_device)
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    peaks, left = [], []
+    for _ in range(3):
+        B.sample_posterior(design, num_warmup=20, num_samples=10, seed=7, device=cuda_device)
+        peaks.append(torch.cuda.max_memory_reserved(cuda_device))
+        left.append(torch.cuda.memory_reserved(cuda_device))
+    torch.cuda.empty_cache()
+    emptied = torch.cuda.memory_reserved(cuda_device)
+    print(f"reserved: base {base}, peaks {peaks}, after each fit {left}, emptied {emptied}")
+    assert max(peaks[1:]) <= peaks[0], peaks
+    assert max(left[1:]) <= left[0], left
+    assert emptied <= base, (base, emptied)
 
 
 @pytest.mark.gpu

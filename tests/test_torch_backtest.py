@@ -302,7 +302,7 @@ def test_reference_compat_elo_noop_differs(batched_run, tmp_path):
     assert compat["pole_brier"] != batched_run["pole_brier"]
 
 
-def test_oversize_fields_raise_not_yet_ported(prepared):
+def test_oversize_fields_run_on_the_lap_engine(prepared):
     """Fields over 128 drivers no longer raise: a season with one runs race
     by race, the wide race on the lap engine (ops/engine.py), each at its
     `fold_in` seed, the others on the race kernel."""

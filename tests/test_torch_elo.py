@@ -1,6 +1,8 @@
 """The port's Elo (`monte_carlo_gp_torch.models.elo`, float32 torch on the
 CPU) against the JAX package's `lax.scan` version. Sums over opponents run
-in another order, so ratings agree to rtol=1e-5, not bitwise."""
+in another order, so ratings agree to rtol=1e-5, not bitwise. The rules of
+tests/test_elo.py hold against the sequential oracle
+(tests/oracle/reference_elo.py) at that file's tolerances."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -9,6 +11,7 @@ import torch
 
 from monte_carlo_gp_torch.models import elo as telo
 from monte_carlo_gp_tpu.models import elo as jelo
+from oracle.reference_elo import OracleElo
 
 torch.set_num_threads(2)
 
@@ -104,3 +107,99 @@ def test_rookie_priors_match_jax():
     for d in got:
         assert got[d] == pytest.approx(want[d], rel=1e-6)
     assert tsys.has_rating("NEW") and not tsys.has_rating("X")
+
+
+# -- the rules of tests/test_elo.py, against the sequential oracle ----------------
+
+
+def _random_history(seed=0, n_events=30, n_drivers=12):
+    rng = np.random.default_rng(seed)
+    names = [f"D{i:02d}" for i in range(n_drivers)]
+    events = []
+    for e in range(n_events):
+        k = rng.integers(4, n_drivers + 1)
+        drivers = rng.choice(names, size=k, replace=False)
+        if e % 2 == 0:  # quali: lap times
+            vals = 88.0 + rng.random(k) * 3.0
+            events.append(("quali", list(zip(drivers.tolist(), vals.tolist()))))
+        else:  # race: positions
+            pos = rng.permutation(k) + 1
+            events.append(("race", list(zip(drivers.tolist(), pos.tolist()))))
+    return events
+
+
+def test_matches_oracle_on_random_history():
+    events = _random_history()
+    oracle, system = OracleElo(), telo.F1EloSystem()
+    for i, (kind, results) in enumerate(events):
+        oracle.set_recency_weight(i % 3, race_index=i, total_races=len(events))
+        system.set_recency_weight(i % 3, race_index=i, total_races=len(events))
+        if kind == "quali":
+            oracle.update_quali(results)
+            system.update_quali_ratings(results)
+        else:
+            oracle.update_race(results)
+            system.update_race_ratings(results)
+    for name in oracle.ratings:
+        assert abs(system.get_rating(name, "quali") - oracle.ratings[name]["quali"]) < 2e-2
+        assert abs(system.get_rating(name, "race") - oracle.ratings[name]["race"]) < 2e-2
+
+
+def test_tie_handling():
+    system, oracle = telo.F1EloSystem(), OracleElo()
+    results = [("A", 90.0), ("B", 90.0), ("C", 91.0)]
+    system.update_quali_ratings(results)
+    oracle.update_quali(results)
+    for d in "ABC":
+        assert abs(system.get_rating(d) - oracle.ratings[d]["quali"]) < 1e-3
+    assert abs(system.get_rating("A") - system.get_rating("B")) < 1e-4  # tied
+
+
+def test_single_driver_event_is_noop():
+    system = telo.F1EloSystem()
+    system.update_quali_ratings([("A", 90.0)])
+    assert system.get_rating("A") == 1500.0
+
+
+def test_unknown_driver_default():
+    system = telo.F1EloSystem()
+    assert system.get_rating("ZZZ") == 1500.0
+    assert system.get_rating("ZZZ", "race") == 1500.0
+
+
+def test_ordered_list_form_equals_position_pairs():
+    a, b = telo.F1EloSystem(), telo.F1EloSystem()
+    a.update_race_ratings(["X", "Y", "Z"])
+    b.update_race_ratings([("X", 1), ("Y", 2), ("Z", 3)])
+    for d in "XYZ":
+        assert abs(a.get_rating(d, "race") - b.get_rating(d, "race")) < 1e-4
+
+
+def test_softmax_probs_match_oracle():
+    system, oracle = telo.F1EloSystem(), OracleElo()
+    results = [("A", 1.0), ("B", 2.0), ("C", 3.0), ("D", 4.0)]
+    system.update_quali_ratings(results)
+    oracle.update_quali(results)
+    p_sys = system.predict_quali_probs(["A", "B", "C", "D", "E"])
+    p_or = oracle.predict_quali_probs(["A", "B", "C", "D", "E"])
+    assert abs(sum(p_sys.values()) - 1.0) < 1e-5
+    for d in p_or:
+        assert abs(p_sys[d] - p_or[d]) < 1e-4
+    assert p_sys["A"] > p_sys["B"] > p_sys["C"] > p_sys["D"]
+
+
+def test_recency_k_schedule():
+    assert telo.recency_k(32, 0, 0, 24) == 32 * 0.75
+    assert telo.recency_k(32, 0, 23, 24) == 32 * 1.5
+    assert telo.recency_k(32, 1) == 32.0
+    assert telo.recency_k(32, 2) == 32 * 0.7
+    assert telo.recency_k(32, 3) == 32 * 0.5
+    assert telo.recency_k(32, 10) == 32 * 0.5
+
+
+def test_state_dict_roundtrip():
+    system = telo.F1EloSystem()
+    system.update_race_ratings([("A", 1), ("B", 2)])
+    restored = telo.F1EloSystem.from_state_dict(system.state_dict())
+    assert restored.get_rating("A", "race") == system.get_rating("A", "race")
+    assert restored.names == system.names

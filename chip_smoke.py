@@ -4,14 +4,16 @@ Run from the root of a checkout:
 
     python3 chip_smoke.py
 
-It builds the race kernels from `monte_carlo_gp_torch/csrc/` (K1, one race;
-K2, a season in one launch), holds their counts bitwise against the golden
-file (`tests/data/torch_kernel_golden.npz`: K1 at 20, 40, 80 and 128
-drivers and K2 on two seasons, as the kernels gave them before the race
-body's redesign; also through the sharded entries) and each kernel against
-its plain PyTorch version, K1 also against the native C++ oracle. It drives
-the port's paths through their CLI entry points and checks that each went
-through its kernel:
+It builds the package's two CUDA libraries from `monte_carlo_gp_torch/csrc/`,
+one nvcc each, started together: the race kernels (K1, one race; K2, a
+season in one launch) and the HMC kernel (one whole HMC transition of the
+Bayesian qualifying model per launch). It holds the race kernels' counts
+bitwise against the golden file (`tests/data/torch_kernel_golden.npz`: K1 at
+20, 40, 80 and 128 drivers and K2 on two seasons, as the kernels gave them
+before the race body's redesign; also through the sharded entries) and each
+kernel against its plain PyTorch version, K1 also against the native C++
+oracle. It drives the port's paths through their entry points and checks
+that each went through its kernel:
 
   * the single-weekend prediction (Bahrain 2024, synthetic world, 20
     drivers, 57 laps, 1,048,576 simulations) through K1;
@@ -37,24 +39,30 @@ through its kernel:
   * the alternative qualifying models and the server: (a) the Bayesian
     model's HMC fit of the synthetic archive (Bahrain 2024) on the card at
     its default budget, through `F1Predictor(quali_model="bayesian")`, each
-    of its 2,000 transitions a replay of one captured CUDA graph, bitwise
-    equal to the eager fit of the same seed on the card and to three more
-    graphed fits (whose peak reserved memory must not grow), and within
-    total variation 0.05 of a CPU fit in its pole distribution; (b) `python -m
-    monte_carlo_gp_torch.serve` on the card, with the Elo and then the
-    Bayesian model: 50 requests at 10,000 simulations and 10 at 1,048,576,
-    their p50/p95 latency, same-seed bodies identical and equal to the
-    weekend through F1Predictor in this process (one K1 launch); (c) the
-    gbm model: a weekend where scikit-learn imports, else the CLI's error
-    naming it;
+    of its 2,000 transitions one launch of the HMC kernel (each warmup
+    stage's starting logp one launch of its logp entry, no graph replayed),
+    bitwise equal to three more kernel fits of the same seed; the kernel
+    against its plain version per call (logp, gradient) and per transition
+    at states recorded from a real fit; the eager fit of the same seed and
+    three fits with every transition a replay of one captured CUDA graph
+    (the yardstick), the graphed fit bitwise the eager fit and its peak
+    reserved memory not growing; the kernel's ms per launch and the graph's
+    per transition timed in turns; the kernel fit within total variation
+    0.05 of a CPU fit and of the graphed fit in its pole distribution; (b)
+    `python -m monte_carlo_gp_torch.serve` on the card, with the Elo and
+    then the Bayesian model: the ready time, 50 requests at 10,000
+    simulations and 10 at 1,048,576, their p50/p95 latency, same-seed bodies
+    identical and equal to the weekend through F1Predictor in this process
+    (one K1 launch); (c) the gbm model: a weekend where scikit-learn
+    imports, else the CLI's error naming it;
   * the last modules of the port: (d) `python -m
     monte_carlo_gp_torch.precompile --season-races 20` in a child with a
-    fresh MCGP_COMPILE_CACHE (the cold build, one K1 and one K2 launch),
-    then a weekend CLI in a second child that finds the library built, and
-    a cold weekend with MCGP_COMPILE_CACHE=0 to compare it with; (e) the
-    main path's weekend with `--trace DIR` and without, bitwise equal, the
-    trace holding K1 as a device event, with the device's busy share and
-    K1's device time read from it; (f) the walkthrough
+    fresh MCGP_COMPILE_CACHE (the cold build of both libraries, one K1 and
+    one K2 launch), then a weekend CLI in a second child that finds the
+    libraries built, and a cold weekend with MCGP_COMPILE_CACHE=0 to
+    compare it with; (e) the main path's weekend with `--trace DIR` and
+    without, bitwise equal, the trace holding K1 as a device event, with the
+    device's busy share and K1's device time read from it; (f) the walkthrough
     (`monte_carlo_gp_torch.examples.weekend_walkthrough`) at its default
     count: its four sections, K1 once per weekend, the season on the lap
     engine.
@@ -67,8 +75,9 @@ lists the kernels, with their launches on their path, their error against
 the plain version, their times and their bounds, the golden check, their
 registers (ptxas) and the warps resident on an SM at their launch shape
 (with a `wide` list of the same readings at each wide field, the
-sharded entry's readings at each shard count, and each kernel's launches on
-every path that drives it, `launches_by_path`). Without a CUDA device it
+sharded entry's readings at each shard count, the HMC kernel's graph time
+per transition, shared memory and blocks resident, and each kernel's
+launches on every path that drives it, `launches_by_path`). Without a CUDA device it
 exits non-zero and prints no result.
 """
 
@@ -160,6 +169,13 @@ XLA_WEEKEND_SIMS, XLA_SEASON_SIMS = 262_144, 2_048
 # gated: on this archive the JAX fit itself reads 1.07-1.18 over seeds 42, 1
 # and 2 (a slow team_sigma direction), above the small world's 1.15 gate.
 BAYES_POLE_TV, BAYES_ACCEPT = 0.05, (0.6, 0.99)
+# sample_posterior's leapfrog steps; the transitions of the first kernel
+# fit whose inputs the per-call check runs at (both warmup stages and the
+# sampling phase); launches per timing turn of the kernel and the graph, and
+# calls of the eager transition timed
+BAYES_LEAPFROG = 48
+HMC_RECORD_AT = (0, 250, 499, 500, 999, 1000, 1500, 1999)
+HMC_TIME_CALLS, HMC_PLAIN_CALLS = 200, 5
 # the server: requests at its default count and at the main path's
 SERVE_SIMS, SERVE_REQUESTS, SERVE_BIG_REQUESTS, SERVE_SEED = 10_000, 50, 10, 7
 SERVE_TIMEOUT_S = 300
@@ -1056,27 +1072,84 @@ def start_cpu_fit(design, seed: int):
     return proc, out_path
 
 
+def hmc_flops(n: int, k: int, chains: int, n_leapfrog: int) -> int:
+    """float32 operations of one HMC transition of `chains` chains over n
+    rows and k effect columns, counted from `csrc/hmc_kernel.cu` (an exp, a
+    sqrt or a division as one; the warp trees' adds not counted):
+      * per gradient: 5 per row (three adds, the square and its sum), 3 per
+        row for its three column sums, 10 per effect column (its gradient 7,
+        the next effect 3), 5 per parameter (the momentum and position
+        updates) and 25 for the scalars;
+      * per transition: n_leapfrog + 1 gradients, the momentum (2 per
+        parameter), the two kinetic energies (3 per parameter each), logp
+        (2 per effect column and 20) and the accept (10)."""
+    dim = 5 + k
+    per_gradient = 8 * n + 10 * k + 5 * dim + 25
+    return chains * ((n_leapfrog + 1) * per_gradient + 8 * dim + 2 * k + 30)
+
+
+def hmc_bytes(n: int, k: int, chains: int) -> int:
+    """The design read once (16 B a row; the column lists, 4 B per entry and
+    per start) and one transition's inputs read and outputs written once:
+    theta, inv_mass and z in and theta' out, (chains, 5 + k) float32; lp,
+    eps, u_jit and u_acc in and lp' and alpha out, (chains,)."""
+    return 16 * n + 4 * (3 * n + k + 1) + 4 * chains * (4 * (5 + k) + 6)
+
+
+def hmc_times(dev, kd, state: dict, n_leapfrog: int) -> dict:
+    """ms per call at one recorded state, taken in turns (graph, kernel,
+    kernel, graph): the kernel's launch, the captured graph's replay of the
+    eager transition (its inputs copied in, as in a graphed fit); then the
+    eager transition on the card, the plain version."""
+    from monte_carlo_gp_torch.models import bayesian as B
+    from monte_carlo_gp_torch.ops import hmc_kernel as H
+
+    args = [state[k] for k in ("theta", "lp", "eps", "inv_mass", "z", "u_jit", "u_acc")]
+    times = {"graph": [], "kernel": []}
+    with torch.inference_mode():
+        graphed = B.GraphedTransition(kd.logp_fn, kd.grad_fn, n_leapfrog, *args[0].shape, dev)
+        try:
+            calls = {"graph": lambda: graphed(*args),
+                     "kernel": lambda: H.hmc_transition(kd, *args, n_leapfrog)}
+            for name in ("graph", "kernel", "kernel", "graph"):
+                times[name].append(time_kernel_ms(calls[name], HMC_TIME_CALLS))
+        finally:
+            graphed.close()
+        plain = time_kernel_ms(lambda: H.hmc_transition_plain(
+            *args[:4], kd.logp_fn, kd.grad_fn, n_leapfrog, *args[4:]), HMC_PLAIN_CALLS)
+    return {"kernel_ms": times["kernel"], "graph_ms": times["graph"], "plain_ms": plain}
+
+
 def bayes_phase(dev, design, cpu_run) -> dict:
     """(a) The Bayesian qualifying model on the card: the weekend's plan
     through `F1Predictor(quali_model="bayesian")`, whose HMC fit of the
     synthetic archive (Bahrain 2024, `design`) runs on the card at the
-    default budget, every transition a replay of one captured CUDA graph
-    (2,000 replays); the same seed's eager fit on the card (the plain
-    version), bitwise equal in `raw` and `accept_rate`; three more graphed
-    fits in a row, bitwise equal, the device memory reserved at their peak
-    not growing after the first; the CPU fit of the same seed that
-    `cpu_run` (`start_cpu_fit`) ran meanwhile, its pole distribution within
-    total variation 0.05; then the weekend's Monte Carlo through K1 at the
-    server's default count, the in-process result the Bayesian server is
-    held to. Returns the readings and that result."""
+    default budget, every transition one launch of the HMC kernel (2,000
+    launches, 2 logp launches, no graph replay); three more kernel fits of
+    the same seed, bitwise equal to it, the first recording states at which
+    the kernel is held to the plain version per call and per transition
+    (`validate/hmc.py`); the same seed's eager fit on the card (the plain
+    version) and three graphed fits (`sample_posterior_graphed`, the
+    yardstick), the first bitwise the eager fit in `raw` and `accept_rate`,
+    all three bitwise equal, the device memory reserved at their peak not
+    growing after the first; the kernel's ms per launch and the graph's per
+    transition in turns at a sampled state; the CPU fit of the same seed
+    that `cpu_run` (`start_cpu_fit`) ran meanwhile; the kernel fit's pole
+    distribution within total variation 0.05 of the CPU fit's and of the
+    graphed fit's; then the weekend's Monte Carlo through K1 at the server's
+    default count, the in-process result the Bayesian server is held to.
+    Returns the readings, that result (`result`) and the kernels line's
+    `hmc_transition` entry (`kernel`)."""
     import pickle
     import zlib
 
     from monte_carlo_gp_torch.data.synthetic import SyntheticBackend
     from monte_carlo_gp_torch.models import bayesian as B
     from monte_carlo_gp_torch.models.predictor import F1Predictor
+    from monte_carlo_gp_torch.ops import hmc_kernel as H
     from monte_carlo_gp_torch.ops import race_kernel as rk
     from monte_carlo_gp_torch.utils.profiling import Phase, timed_calls
+    from monte_carlo_gp_torch.validate import hmc
 
     t0 = time.perf_counter()
     predictor = F1Predictor(cache_dir=SMOKE_CACHE / "bayes", backend=SyntheticBackend(seed=2718),
@@ -1084,32 +1157,47 @@ def bayes_phase(dev, design, cpu_run) -> dict:
     model = predictor._bayes_model
     iters = model.num_warmup + model.num_samples
     timers = Phase()
-    with timed_calls(B, "sample_posterior", timers), timed_calls(B, "GraphedTransition", timers):
-        B.transition_replays = 0
+    with timed_calls(B, "sample_posterior", timers):
+        H.hmc_transition.launches = H.hmc_logp.launches = B.transition_replays = 0
         plan, prepare_ms = plain_ms_of(lambda: predictor.prepare_weekend(2024, "Bahrain"))
-        replays = [B.transition_replays]
-        fit_s = timers.totals["sample_posterior"]
-        capture_s = [timers.totals["GraphedTransition"]]
-        post = model._posterior
-        if not all(np.array_equal(getattr(post.design, f), getattr(design, f))
-                   for f in design.__dataclass_fields__):
-            raise AssertionError("the predictor fitted another archive than the CPU reference's")
-        eager, eager_ms = plain_ms_of(
-            lambda: B.sample_posterior(design, seed=model.seed, device=dev, plain=True))
-        bitwise = (np.array_equal(post.raw, eager.raw)
-                   and np.array_equal(post.accept_rate, eager.accept_rate))
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(dev)
-        again_s, peaks, same = [], [], True
-        for _ in range(3):
-            B.transition_replays = 0
-            before = timers.totals["GraphedTransition"]
-            again, again_ms = plain_ms_of(lambda: B.sample_posterior(design, seed=model.seed, device=dev))
-            replays.append(B.transition_replays)
-            capture_s.append(timers.totals["GraphedTransition"] - before)
-            again_s.append(again_ms / 1e3)
-            peaks.append(torch.cuda.max_memory_reserved(dev))
-            same = same and np.array_equal(post.raw, again.raw)
+        launches = (H.hmc_transition.launches, H.hmc_logp.launches, B.transition_replays)
+    fit_s = timers.totals["sample_posterior"]
+    post = model._posterior
+    if not all(np.array_equal(getattr(post.design, f), getattr(design, f))
+               for f in design.__dataclass_fields__):
+        raise AssertionError("the predictor fitted another archive than the CPU reference's")
+
+    def fit(**kw):
+        return plain_ms_of(lambda: B.sample_posterior(design, seed=model.seed, device=dev, **kw))
+
+    def equal(a, b) -> bool:
+        return np.array_equal(a.raw, b.raw) and np.array_equal(a.accept_rate, b.accept_rate)
+
+    with hmc.recorded_transitions(HMC_RECORD_AT) as states:
+        again, again_ms = fit()
+    again_s, same = [again_ms / 1e3], equal(post, again)
+    for _ in range(2):
+        again, again_ms = fit()
+        again_s.append(again_ms / 1e3)
+        same = same and equal(post, again)
+    kd = B.kernel_design(design, dev)
+    check = hmc.kernel_vs_plain(kd, states, BAYES_LEAPFROG)
+
+    eager, eager_ms = fit(plain=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    graphed, graph_s, peaks, replays = [], [], [], []
+    for _ in range(3):
+        B.transition_replays = 0
+        g, ms = plain_ms_of(lambda: B.sample_posterior_graphed(design, seed=model.seed, device=dev))
+        graphed.append(g)
+        graph_s.append(ms / 1e3)
+        peaks.append(torch.cuda.max_memory_reserved(dev))
+        replays.append(B.transition_replays)
+    graph_is_eager = equal(graphed[0], eager)
+    graphs_same = all(equal(g, graphed[0]) for g in graphed[1:])
+    times = hmc_times(dev, kd, states[-1], BAYES_LEAPFROG)
+
     proc, out_path = cpu_run
     if proc.wait(timeout=SERVE_TIMEOUT_S) != 0:
         raise AssertionError(f"the CPU reference fit failed ({proc.returncode})")
@@ -1120,44 +1208,103 @@ def bayes_phase(dev, design, cpu_run) -> dict:
     q_laps = predictor.feature_engine.laps
     teams = q_laps[q_laps["session_type"] == "Q"].groupby("Driver", sort=False)["Team"].last().to_dict()
     seed = zlib.crc32(f"2024:{circuit}".encode())
-    on_card = B.quali_position_probs(post, plan.drivers, teams, circuit, seed)
-    on_cpu = B.quali_position_probs(cpu, plan.drivers, teams, circuit, seed)
-    tv = 0.5 * sum(abs(on_card[d][0] - on_cpu[d][0]) for d in plan.drivers)
+
+    def pole_tv(other) -> float:
+        a = B.quali_position_probs(post, plan.drivers, teams, circuit, seed)
+        b = B.quali_position_probs(other, plan.drivers, teams, circuit, seed)
+        return 0.5 * sum(abs(a[d][0] - b[d][0]) for d in plan.drivers)
+
+    tv, tv_graph = pole_tv(cpu), pole_tv(graphed[0])
     grid = np.array([plan.quali_probs[d] for d in plan.drivers])
     result, wall, k1, k2 = run_counted(rk, lambda: predictor.assemble_result(
         plan, predictor.simulate_plan(plan, SERVE_SIMS, seed=SERVE_SEED)))
     eager_s = eager_ms / 1e3
-    log(f"[bayes fit] synthetic archive before Bahrain 2024: {design.n_rows} rows, "
-        f"{post.raw.shape[2]} parameters; {post.raw.shape[0]} chains x {iters} iterations x 48 "
-        f"leapfrog steps on {dev}: graphed fit {fit_s:.3f} s ({fit_s / iters * 1e3:.3f} ms per "
-        f"transition; warm-up runs and capture {capture_s[0] * 1e3:.1f} ms; {replays[0]} replays) "
-        f"inside the Bayesian weekend's prepare of {prepare_ms / 1e3:.3f} s; the eager fit of the "
-        f"same seed on the card {eager_s:.3f} s ({eager_s / iters * 1e3:.3f} ms per transition), "
-        f"graphed bitwise equal to it (raw and accept_rate): {bitwise}; three graphed fits again "
-        f"{', '.join(f'{x:.3f}' for x in again_s)} s (capture "
-        f"{', '.join(f'{x * 1e3:.1f}' for x in capture_s[1:])} ms; replays {replays[1:]}), bitwise "
-        f"equal {same}, max memory reserved after each {peaks} B; on the CPU {cpu_s:.3f} s (2 "
-        f"threads, in a process beside the card's fits); acceptance "
-        f"{np.round(post.accept_rate, 4).tolist()}, max split R-hat {rhat:.4f}; pole TV card vs "
-        f"CPU {tv:.4f} (bound {BAYES_POLE_TV}); the weekend's grid rows sum to 1: "
+    kernel_ms = float(np.mean(times["kernel_ms"]))
+    graph_ms = float(np.mean(times["graph_ms"]))
+    n, k, chains = kd.n_rows, kd.n_cols, post.raw.shape[0]
+    bound_ms, bound_by = bound(hmc_flops(n, k, chains, BAYES_LEAPFROG), hmc_bytes(n, k, chains))
+    facts = H.ptxas_facts(H.build().with_suffix(".log").read_text())
+    blocks = H.blocks_per_sm(dev, n, k)
+    log(f"[bayes fit] synthetic archive before Bahrain 2024: {n} rows, {k} effect columns, "
+        f"{post.raw.shape[2]} parameters; {chains} chains x {iters} iterations x {BAYES_LEAPFROG} "
+        f"leapfrog steps on {dev}: kernel fit {fit_s:.3f} s ({fit_s / iters * 1e3:.4f} ms per "
+        f"iteration; HMC kernel launches {launches[0]}, logp launches {launches[1]}, graph replays "
+        f"{launches[2]}) inside the Bayesian weekend's prepare of {prepare_ms / 1e3:.3f} s; three "
+        f"kernel fits again {', '.join(f'{x:.3f}' for x in again_s)} s, bitwise equal {same}")
+    log(f"[bayes kernel] one launch per transition: {', '.join(f'{x:.4f}' for x in times['kernel_ms'])} "
+        f"ms (kernel turns; {HMC_TIME_CALLS} launches each, CUDA events) against the graph's "
+        f"{', '.join(f'{x:.4f}' for x in times['graph_ms'])} ms per transition (graph turns) and "
+        f"the eager transition's {times['plain_ms']:.3f} ms, at iteration {HMC_RECORD_AT[-1]}'s "
+        f"state; an iteration of the kernel fit {fit_s / iters * 1e3:.4f} ms of wall beside "
+        f"{kernel_ms:.4f} ms of launch; bound {bound_ms * 1e3:.4f} us ({bound_by}); "
+        f"{facts.get('registers')} registers, {facts.get('spill_stores')} B spill stores, "
+        f"{H.shared_bytes(n, k)} B shared memory, {blocks} block(s) of {H.THREADS} threads "
+        f"resident per SM; against the plain version at {check['states']} recorded states "
+        f"({check['chains']} chain-transitions): max |dlogp| {check['logp']:.3e}, max |dgrad| "
+        f"{check['grad']:.3e}, max |dtheta'| {check['theta']:.3e}, max |dlp'| {check['lp']:.3e}, "
+        f"max |dalpha| {check['alpha']:.3e}, accept decisions differing {check['decisions_differ']} "
+        f"({check['decisions_differ_outside_margin']} outside |u - alpha| <= {hmc.ALPHA_MARGIN}); "
+        f"within rtol {hmc.RTOL}, atol {hmc.ATOL} (theta' atol {hmc.THETA_ATOL}): {check['ok']}")
+    log(f"[bayes graph] the eager fit of the same seed on the card {eager_s:.3f} s "
+        f"({eager_s / iters * 1e3:.3f} ms per transition); three graphed fits "
+        f"{', '.join(f'{x:.3f}' for x in graph_s)} s (replays {replays}), the first bitwise the "
+        f"eager fit (raw and accept_rate): {graph_is_eager}, all bitwise equal {graphs_same}, max "
+        f"memory reserved after each {peaks} B; on the CPU {cpu_s:.3f} s (2 threads, in a process "
+        f"beside the card's fits); acceptance {np.round(post.accept_rate, 4).tolist()}, max split "
+        f"R-hat {rhat:.4f}; pole TV kernel vs CPU {tv:.4f}, kernel vs graph {tv_graph:.4f} (bound "
+        f"{BAYES_POLE_TV}); the weekend's grid rows sum to 1: "
         f"{np.allclose(grid.sum(axis=1), 1.0, atol=1e-6)}; K1 launches {k1}, K2 {k2} at "
         f"{SERVE_SIMS} sims; phase {time.perf_counter() - t0:.1f} s")
     lo, hi = BAYES_ACCEPT
-    if not (bitwise and replays == [iters] * 4):
+    if launches != (iters, 2, 0):
+        raise AssertionError(f"the Bayesian weekend's fit did not run through the HMC kernel: "
+                             f"(launches, logp launches, graph replays) {launches}")
+    if not (same and check["ok"]):
+        raise AssertionError("the HMC kernel is not reproducible or departs from its plain version")
+    if not (graph_is_eager and graphs_same and replays == [iters] * 3):
         raise AssertionError("the graphed fit is not the eager fit replayed through its graph")
     if max(peaks[1:]) > peaks[0]:
         raise AssertionError(f"the device memory reserved grew over graphed fits: {peaks}")
-    if not (same and np.isfinite(post.raw).all() and tv < BAYES_POLE_TV
+    if not (np.isfinite(post.raw).all() and tv < BAYES_POLE_TV and tv_graph < BAYES_POLE_TV
             and np.all((post.accept_rate > lo) & (post.accept_rate < hi))
             and np.allclose(grid.sum(axis=1), 1.0, atol=1e-6) and (k1, k2) == (1, 0)):
         raise AssertionError("the Bayesian fit on the card failed a check")
-    return {"rows": design.n_rows, "dim": int(post.raw.shape[2]), "fit_s": fit_s,
-            "s_per_transition": fit_s / iters, "replays": replays, "capture_s": capture_s,
-            "prepare_s": prepare_ms / 1e3, "eager_s": eager_s,
-            "eager_s_per_transition": eager_s / iters, "graphed_equals_eager": bitwise,
-            "again_s": again_s, "max_memory_reserved": peaks, "cpu_s": cpu_s,
-            "accept": post.accept_rate.tolist(), "rhat": rhat, "pole_tv_vs_cpu": tv,
-            "result": result}
+    kernel = {
+        "name": "hmc_transition",
+        "route": "cuda",
+        "source": "monte_carlo_gp_torch/csrc/hmc_kernel.cu",
+        "replaces": "monte_carlo_gp_tpu/models/bayesian.py:262",
+        "replaces_what": "_leapfrog (:247-259) and _hmc_transition (:262-284), computed by XLA "
+                         "with no Pallas kernel",
+        "launches": launches[0],
+        "launches_by_path": {"bayesian weekend": launches[0], "logp entry": launches[1]},
+        "max_abs_err": check["theta"],
+        "max_abs_err_of": {k: check[k] for k in ("logp", "grad", "theta", "lp", "alpha")},
+        "decisions_differ": check["decisions_differ"],
+        "ms": kernel_ms,
+        "ms_turns": times["kernel_ms"],
+        "graph_ms": graph_ms,
+        "graph_ms_turns": times["graph_ms"],
+        "plain_ms": times["plain_ms"],
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "fit_s": fit_s,
+        "ms_per_iteration": fit_s / iters * 1e3,
+        **facts,
+        "shared_bytes": H.shared_bytes(n, k),
+        "threads_per_block": H.THREADS,
+        "blocks_per_sm": blocks,
+        "rows": n,
+    }
+    return {"rows": n, "dim": int(post.raw.shape[2]), "fit_s": fit_s,
+            "s_per_iteration": fit_s / iters, "launches": list(launches),
+            "prepare_s": prepare_ms / 1e3, "again_s": again_s, "eager_s": eager_s,
+            "eager_s_per_transition": eager_s / iters, "graph_s": graph_s,
+            "graph_replays": replays, "graphed_equals_eager": graph_is_eager,
+            "max_memory_reserved": peaks, "cpu_s": cpu_s, "accept": post.accept_rate.tolist(),
+            "rhat": rhat, "pole_tv_vs_cpu": tv, "pole_tv_vs_graph": tv_graph,
+            "result": result, "kernel": kernel}
 
 
 def _read_ready(proc, deadline: float) -> tuple[str, list[str]]:
@@ -1365,7 +1512,7 @@ def _child(args: list[str], cache: str, timeout: float = PREBUILD_TIMEOUT_S):
 
 def prebuild_phase() -> dict:
     """Phase (d): `python -m monte_carlo_gp_torch.precompile` in a child with
-    a fresh MCGP_COMPILE_CACHE builds the library and launches K1 and K2
+    a fresh MCGP_COMPILE_CACHE builds both libraries and launches K1 and K2
     once; a weekend CLI in a second child with the same cache builds
     nothing; a weekend CLI with MCGP_COMPILE_CACHE=0 (a build directory of
     its own) is the cold first weekend it is compared with. Returns the
@@ -1379,9 +1526,10 @@ def prebuild_phase() -> dict:
         libs = sorted(p.name for p in (Path(cache) / "kernels").glob("*.so"))
         log(f"[prebuild] {proc.stdout.strip()}; child wall {cold_s:.2f} s; libraries {libs}; "
             f"K1 launches {event['k1_launches']}, K2 {event['k2_launches']}")
-        if (event["libraries"], event["programs"], len(libs)) != (1, 2, 1) or (
+        if (event["libraries"], event["programs"], len(libs)) != (2, 2, 2) or (
                 event["k1_launches"], event["k2_launches"]) != (1, 1):
-            raise AssertionError("the prebuild step did not build the library and launch K1 and K2")
+            raise AssertionError("the prebuild step did not build the race and HMC libraries "
+                                 "and launch K1 and K2")
         weekend = ["monte_carlo_gp_torch", *PREBUILD_WEEKEND_ARGS,
                    "--cache-dir", str(SMOKE_CACHE / "prebuild_weekend")]
         warm, warm_s = _child(weekend, cache)
@@ -1510,12 +1658,20 @@ def main() -> None:
     from monte_carlo_gp_torch.profile_kernel import overtake_passes
     from monte_carlo_gp_torch.validate.native_oracle import run_native_oracle
 
-    # ---- build ---------------------------------------------------------------
+    # ---- build: one nvcc per source, started together ------------------------
+    from concurrent.futures import ThreadPoolExecutor
+
+    from monte_carlo_gp_torch.ops import hmc_kernel
+
     t0 = time.perf_counter()
-    how = "found built" if rk.is_built() else "compiled"
-    lib = rk.build()
-    log(f"[build] {lib.name} {how} in {time.perf_counter() - t0:.2f} s")
-    log(lib.with_suffix(".log").read_text().strip())
+    how = {m.__name__: "found built" if m.is_built() else "compiled" for m in (rk, hmc_kernel)}
+    with ThreadPoolExecutor(2) as pool:
+        libs = {m.__name__: pool.submit(m.build) for m in (rk, hmc_kernel)}
+        libs = {name: f.result() for name, f in libs.items()}
+    log("[build] " + "; ".join(f"{lib.name} {how[name]}" for name, lib in libs.items())
+        + f" in {time.perf_counter() - t0:.2f} s")
+    for lib in libs.values():
+        log(lib.with_suffix(".log").read_text().strip())
 
     # ---- the golden counts: bitwise what the kernels gave before -------------
     golden = golden_phase(dev)
@@ -1658,8 +1814,9 @@ def main() -> None:
     k2["launches_by_path"] = {"batched backtest": k2["launches"],
                               "prebuild": prebuild["k2_launches"], "walkthrough": walk["k2_launches"]}
     log(f"[phase] all: {time.perf_counter() - START:.1f} s")
+    hmc = alt["bayes"].pop("kernel")
     log("[alternative models and serving] " + json.dumps(alt))
-    log(json.dumps({"kernels": [k1, k2, sharded]}))
+    log(json.dumps({"kernels": [k1, k2, sharded, hmc]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

@@ -32,13 +32,18 @@ from run to run. Every random number is drawn up front from a CPU
 `torch.Generator` seeded with `seed`, so the same seed gives bitwise the
 same posterior on a device, and a CPU and a CUDA fit draw the same numbers.
 
-On a CUDA device one HMC transition (about 1,550 small launches) is
-captured once per fit as a CUDA graph (`GraphedTransition`) and replayed
-for every iteration of the schedule, the counterpart of the JAX model's one
-compiled program; the adaptation between transitions stays eager. The CPU
-runs the schedule eagerly, and that eager schedule is the plain version
-the graph is held to bitwise (`sample_posterior(..., plain=True)` runs it
-on any device).
+On a CUDA device every HMC transition of every chain is one launch of a
+hand-written CUDA kernel (`ops/hmc_kernel.py`, `csrc/hmc_kernel.cu`: the
+momentum, the whole leapfrog trajectory, logp at the proposal and the
+accept, one block per chain, every sum in a fixed order), the counterpart
+of the JAX model's compiled leapfrog loop; each warmup stage's starting
+logp comes from the same kernel, and the adaptation between transitions
+stays eager. On the CPU the kernel's wrapper runs the eager transition,
+the plain version the kernel is held to (`sample_posterior(...,
+plain=True)` runs it without the wrapper on any device).
+`sample_posterior_graphed` replays one captured CUDA graph of the eager
+transition per iteration instead (`GraphedTransition`, bitwise the eager
+fit): the yardstick the kernel is timed against.
 """
 
 from __future__ import annotations
@@ -55,6 +60,9 @@ from monte_carlo_gp_torch.models.quali_common import (
     rank_draws_to_probs,
     valid_q_rows,
 )
+from monte_carlo_gp_torch.ops import hmc_kernel
+# the plain version of a transition, which the CPU fit runs
+from monte_carlo_gp_torch.ops.hmc_kernel import hmc_transition_plain as _hmc_transition
 from monte_carlo_gp_torch.utils.logging import log_event
 
 # Prior scales.
@@ -240,42 +248,6 @@ def make_log_posterior(design: QualiDesign, device: str | torch.device = "cuda")
 # ---------------------------------------------------------------------------
 
 
-def _leapfrog(theta, p, eps, inv_mass, grad_fn, n_steps: int):
-    """`n_steps` leapfrog steps of every chain: theta, p and inv_mass are
-    (chains, dim), eps is (chains,)."""
-    eps = eps[:, None]
-    half, drift = 0.5 * eps, eps * inv_mass
-    p = p + half * grad_fn(theta)
-    for _ in range(n_steps - 1):
-        theta = theta + drift * p
-        p = p + eps * grad_fn(theta)
-    theta = theta + drift * p
-    p = p + half * grad_fn(theta)
-    return theta, p
-
-
-def _hmc_transition(theta, lp, eps, inv_mass, logp_fn, grad_fn, n_leapfrog, z, u_jit, u_acc):
-    """One Metropolis-corrected HMC proposal per chain from the standard
-    normals `z` (chains, dim) and the uniforms `u_jit`, `u_acc` (chains,).
-    Returns (theta', lp', alpha), alpha being the acceptance probability
-    that dual averaging reads."""
-    p = z / torch.sqrt(inv_mass)  # p ~ N(0, M), M = 1 / inv_mass (diagonal)
-    # A multiplicative step jitter in [0.8, 1.2) breaks leapfrog periodicity
-    # (a fixed (eps, L) can resonate with a mode's curvature and trap a chain
-    # at low acceptance); dual averaging still sees the realized alpha.
-    eps = eps * (0.8 + 0.4 * u_jit)
-    theta_new, p_new = _leapfrog(theta, p, eps, inv_mass, grad_fn, n_leapfrog)
-    lp_new = logp_fn(theta_new)
-    ke = 0.5 * torch.sum(p * inv_mass * p, dim=1)
-    ke_new = 0.5 * torch.sum(p_new * inv_mass * p_new, dim=1)
-    log_alpha = (lp_new - ke_new) - (lp - ke)
-    alpha = torch.where(torch.isfinite(log_alpha), torch.exp(log_alpha).clamp(max=1.0), 0.0)
-    accept = u_acc < alpha
-    theta = torch.where(accept[:, None], theta_new, theta)
-    lp = torch.where(accept, lp_new, lp)
-    return theta, lp, alpha
-
-
 @dataclasses.dataclass(frozen=True)
 class TransitionBuffers:
     """The static tensors of one transition: its inputs theta (chains, dim),
@@ -451,18 +423,55 @@ def _schedule(theta0, logp_fn, step, n_warmup: int, n_samples: int, draws):
     return samples, alpha_sum / n_samples
 
 
-def _run_chains(theta0, logp_fn, grad_fn, n_warmup: int, n_samples: int, n_leapfrog: int, draws,
-                plain: bool = False):
-    """`_schedule` with `n_leapfrog` steps per transition. On a CUDA device
-    each transition is a replay of one `GraphedTransition`, released before
-    this returns; on the CPU, or with `plain`, it is `_hmc_transition` run
-    eagerly."""
-    if not theta0.is_cuda or plain:
-        def step(theta, lp, eps, inv_mass, z, u_jit, u_acc):
-            return _hmc_transition(theta, lp, eps, inv_mass, logp_fn, grad_fn, n_leapfrog,
-                                   z, u_jit, u_acc)
+def kernel_design(design: QualiDesign, device, plain=None) -> hmc_kernel.KernelDesign:
+    """The design's rows as the HMC kernel reads them on `device`, with the
+    plain log posterior (`plain`: make_log_posterior's (logp, grad) on that
+    device, made here when None)."""
+    dev = torch.device(device)
+    if plain is None:
+        plain = make_log_posterior(design, dev)[:2]
+    sizes = (len(design.teams), len(design.drivers), len(design.circuits))
+    return hmc_kernel.kernel_design(design.y, design.team_idx, design.driver_idx,
+                                    design.circuit_idx, sizes, _PRIOR_SCALES, *plain, dev)
 
+
+def _eager_step(logp_fn, grad_fn, n_leapfrog: int):
+    """`_hmc_transition` on `logp_fn` and `grad_fn` as a `_schedule` step."""
+    def step(theta, lp, eps, inv_mass, z, u_jit, u_acc):
+        return _hmc_transition(theta, lp, eps, inv_mass, logp_fn, grad_fn, n_leapfrog,
+                               z, u_jit, u_acc)
+
+    return step
+
+
+def _run_chains(theta0, logp_fn, grad_fn, n_warmup: int, n_samples: int, n_leapfrog: int, draws,
+                kernel: hmc_kernel.KernelDesign | None = None):
+    """`_schedule` with `n_leapfrog` steps per transition. With `kernel` (the
+    design as the HMC kernel reads it, on theta0's device) each transition
+    is `hmc_kernel.hmc_transition` and each stage's starting logp
+    `hmc_kernel.hmc_logp`: one launch of the kernel each on a CUDA device,
+    their plain versions on the CPU. Without it each transition is
+    `_hmc_transition` run eagerly."""
+    if kernel is None:
+        step = _eager_step(logp_fn, grad_fn, n_leapfrog)
         return _schedule(theta0, logp_fn, step, n_warmup, n_samples, draws)
+
+    def launch(theta, lp, eps, inv_mass, z, u_jit, u_acc):
+        return hmc_kernel.hmc_transition(kernel, theta, lp, eps, inv_mass, z, u_jit, u_acc,
+                                         n_leapfrog)
+
+    def logp(theta):
+        return hmc_kernel.hmc_logp(kernel, theta)
+
+    return _schedule(theta0, logp, launch, n_warmup, n_samples, draws)
+
+
+def _run_graphed(theta0, logp_fn, grad_fn, n_warmup: int, n_samples: int, n_leapfrog: int,
+                 draws):
+    """`_run_chains` run eagerly, but on a CUDA device every transition a
+    replay of one `GraphedTransition`, released before this returns."""
+    if not theta0.is_cuda:
+        return _run_chains(theta0, logp_fn, grad_fn, n_warmup, n_samples, n_leapfrog, draws)
     graphed = GraphedTransition(logp_fn, grad_fn, n_leapfrog, *theta0.shape, theta0.device)
     try:
         return _schedule(theta0, logp_fn, graphed, n_warmup, n_samples, draws)
@@ -515,10 +524,42 @@ def sample_posterior(
 ) -> QualiPosterior:
     """Fit the hierarchical model on `device` (a CUDA device raises where
     there is none). The same seed on the same device gives bitwise the same
-    `raw`. On a CUDA device every transition replays one captured graph
-    (`GraphedTransition`, counted in `transition_replays`); `plain` runs
-    them eagerly there too, the plain version that the graphed fit equals
-    bitwise. The CPU always runs them eagerly."""
+    `raw`. Every transition goes through the HMC kernel's wrapper
+    (`hmc_kernel.hmc_transition`) and each warmup stage's starting logp
+    through its logp entry: on a CUDA device one launch of the kernel each
+    (counted in their `launches`; a refusal or a failed launch raises
+    `hmc_kernel.HMCKernelError`), on the CPU their plain versions. `plain`
+    runs the transitions eagerly without the wrapper on any device, the
+    plain version the kernel is held to."""
+    def run(theta0, logp_fn, grad_fn, *schedule):
+        kernel = None if plain else kernel_design(design, theta0.device, (logp_fn, grad_fn))
+        return _run_chains(theta0, logp_fn, grad_fn, *schedule, kernel=kernel)
+
+    return _fit(design, num_chains, num_warmup, num_samples, num_leapfrog, seed, device, run)
+
+
+def sample_posterior_graphed(
+    design: QualiDesign,
+    num_chains: int = 4,
+    num_warmup: int = 1000,
+    num_samples: int = 1000,
+    num_leapfrog: int = 48,
+    seed: int = 42,
+    device: str | torch.device = "cuda",
+) -> QualiPosterior:
+    """`sample_posterior` with every transition on a CUDA device a replay of
+    one captured CUDA graph of the eager transition (`GraphedTransition`,
+    counted in `transition_replays`), bitwise the `plain` fit: the yardstick
+    the kernel is timed against. The CPU runs the transitions eagerly."""
+    return _fit(design, num_chains, num_warmup, num_samples, num_leapfrog, seed, device,
+                _run_graphed)
+
+
+def _fit(design: QualiDesign, num_chains: int, num_warmup: int, num_samples: int,
+         num_leapfrog: int, seed: int, device, run) -> QualiPosterior:
+    """`sample_posterior` with its schedule run by `run(theta0, logp_fn,
+    grad_fn, n_warmup, n_samples, n_leapfrog, draws) -> (samples, accept)`
+    (`_run_chains`, `_run_graphed`)."""
     dev = torch.device(device)
     logp_fn, grad_fn, sizes = make_log_posterior(design, dev)
     dim = _param_dim(design)
@@ -531,10 +572,8 @@ def sample_posterior(
     with torch.inference_mode():  # no autograd bookkeeping on ~10^5 small ops
         theta0 = (torch.from_numpy(offsets) + 0.1 * init).to(dev)
         draws = tuple(a.to(dev) for a in draws)
-        samples, accept = _run_chains(
-            theta0, logp_fn, grad_fn, int(num_warmup), int(num_samples), int(num_leapfrog), draws,
-            plain=plain,
-        )
+        samples, accept = run(theta0, logp_fn, grad_fn, int(num_warmup), int(num_samples),
+                              int(num_leapfrog), draws)
         raw = samples.transpose(0, 1).cpu().numpy()  # (chains, samples, dim)
         accept = accept.cpu().numpy()
     con = constrain(torch.from_numpy(raw.reshape(num_chains * num_samples, dim)), sizes)

@@ -512,7 +512,9 @@ class F1Predictor:
         historical qualifying archive. Returns None, and logs why, when the
         archive cannot support a fit (an empty archive, or the model's
         ValueError), so that prepare_weekend takes the Elo path instead of
-        failing the weekend.
+        failing the weekend. A refused or failed HMC kernel
+        (`hmc_kernel.HMCKernelError`, a RuntimeError) is no such reason and
+        fails the weekend.
 
         Deterministic: the fit is cached per archive build with a fixed
         seed, and the grid noise is seeded with crc32 of "season:race"

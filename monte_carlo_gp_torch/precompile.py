@@ -1,11 +1,13 @@
 """Build the race kernels ahead of the first run: the deployment step of the
 PyTorch port (the JAX package's `precompile.py`).
 
-The first CUDA run of a fresh checkout otherwise pays the nvcc build of
-`csrc/race_kernel.cu` inside its first weekend, backtest or server warmup.
-This step builds that library into the directory the kernels are loaded
-from (`ops/_build.build_dir`: `build/kernels/` in the checkout, or under
-`MCGP_COMPILE_CACHE`), so later processes on this machine only load it:
+The first CUDA run of a fresh checkout otherwise pays the nvcc builds of
+`csrc/race_kernel.cu` (the race kernels) and `csrc/hmc_kernel.cu` (the
+Bayesian fit's HMC transition) inside its first weekend, backtest or server
+warmup. This step builds both libraries into the directory the kernels are
+loaded from (`ops/_build.build_dir`: `build/kernels/` in the checkout, or
+under `MCGP_COMPILE_CACHE`), so later processes on this machine only load
+them:
 
     python -m monte_carlo_gp_torch.precompile
     python -m monte_carlo_gp_torch.precompile --season-races 20
@@ -108,12 +110,13 @@ def precompile(
     season_races: int = 0,
     device: str = "cuda",
 ) -> int:
-    """Build the race-kernel library (on a CUDA device) and run the kernel
-    programs once: K1 at `n_drivers`, and K2 for a season of
-    `season_races` races when that is > 0. Returns the number of programs
+    """Build the race-kernel and HMC-kernel libraries (on a CUDA device)
+    and run the race kernel programs once: K1 at `n_drivers`, and K2 for a
+    season of `season_races` races when that is > 0. Returns the number of programs
     run (0 for the lap engine, which builds nothing). Raises without a CUDA
     device when `device` is "cuda", and when the build fails."""
     from monte_carlo_gp_torch.models.predictor import resolve_device, resolve_engine
+    from monte_carlo_gp_torch.ops import hmc_kernel
     from monte_carlo_gp_torch.ops import race_kernel as rk
 
     dev = resolve_device(device)
@@ -126,8 +129,9 @@ def precompile(
     t0 = time.perf_counter()
     libraries = 0
     if dev.type == "cuda":
-        libraries = 0 if rk.is_built() else 1
-        rk.build()
+        for lib in (rk, hmc_kernel):
+            libraries += 0 if lib.is_built() else 1
+            lib.build()
     k1, k2 = rk.race_counts.launches, rk.season_counts.launches
     compile_one(DUMMY_LAPS, n_simulations, engine, n_drivers, dev)
     n_programs = 1

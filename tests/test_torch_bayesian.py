@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from monte_carlo_gp_torch.models import bayesian as B
+from monte_carlo_gp_torch.ops import hmc_kernel
 from monte_carlo_gp_tpu.models import bayesian as JB
 from torch_quali_world import DRIVERS, TEAM_OF, total_pace
 from torch_quali_world import world as _world
@@ -183,8 +184,9 @@ def test_leapfrog_equals_jax(world, n_steps):
     p = rng.standard_normal(theta.shape).astype(np.float32)
     inv_mass = rng.uniform(0.5, 1.5, theta.shape).astype(np.float32)
     eps = np.array([0.001, 0.002, 0.0015, 0.0025], np.float32)
-    got_th, got_p = B._leapfrog(torch.from_numpy(theta), torch.from_numpy(p),
-                                torch.from_numpy(eps), torch.from_numpy(inv_mass), grad, n_steps)
+    got_th, got_p = hmc_kernel.leapfrog(torch.from_numpy(theta), torch.from_numpy(p),
+                                         torch.from_numpy(eps), torch.from_numpy(inv_mass), grad,
+                                         n_steps)
     want_th, want_p = jax.jit(jax.vmap(lambda t, m, e, im: JB._leapfrog(t, m, e, im, jgrad, n_steps)))(
         jnp.asarray(theta), jnp.asarray(p), jnp.asarray(eps), jnp.asarray(inv_mass))
     np.testing.assert_allclose(got_th.numpy(), np.asarray(want_th), rtol=LEAPFROG_RTOL, atol=LEAPFROG_ATOL)

@@ -6,8 +6,8 @@ Run from the root of a checkout:
 
 It builds the package's two CUDA libraries from `monte_carlo_gp_torch/csrc/`,
 one nvcc each, started together: the race kernels (K1, one race; K2, a
-season in one launch) and the HMC kernel (one whole HMC transition of the
-Bayesian qualifying model per launch). It holds the race kernels' counts
+season in one launch) and the HMC kernel (one whole stage of the Bayesian
+qualifying model's HMC fit per launch, from the design's K x K counts). It holds the race kernels' counts
 bitwise against the golden file (`tests/data/torch_kernel_golden.npz`: K1 at
 20, 40, 80 and 128 drivers and K2 on two seasons, as the kernels gave them
 before the race body's redesign; also through the sharded entries) and each
@@ -38,17 +38,22 @@ that each went through its kernel:
     weekend and batched backtest CLIs with `--engine xla` on the lap engine;
   * the alternative qualifying models and the server: (a) the Bayesian
     model's HMC fit of the synthetic archive (Bahrain 2024) on the card at
-    its default budget, through `F1Predictor(quali_model="bayesian")`, each
-    of its 2,000 transitions one launch of the HMC kernel (each warmup
-    stage's starting logp one launch of its logp entry, no graph replayed),
-    bitwise equal to three more kernel fits of the same seed; the kernel
-    against its plain version per call (logp, gradient) and per transition
-    at states recorded from a real fit; the eager fit of the same seed and
-    three fits with every transition a replay of one captured CUDA graph
-    (the yardstick), the graphed fit bitwise the eager fit and its peak
-    reserved memory not growing; the kernel's ms per launch and the graph's
-    per transition timed in turns; the kernel fit within total variation
-    0.05 of a CPU fit and of the graphed fit in its pole distribution; (b)
+    its default budget, through `F1Predictor(quali_model="bayesian")`, as
+    three launches of the HMC kernel's stage entry (two warmup stages, then
+    sampling; no per-transition or logp launch, no graph replayed), bitwise
+    equal to three more kernel fits of the same seed; at 8 iterations of a
+    recorded fit the one-transition entry started from the stage trace's
+    state, bitwise the trace's next state, and against the plain version
+    per call (logp, gradient) and per transition; the host replay of both
+    warmup stages' dual averaging and Welford variance against the
+    kernel's; the eager fit of the same seed and three fits with every
+    transition a replay of one captured CUDA graph (the yardstick), the
+    graphed fit bitwise the eager fit and its peak reserved memory not
+    growing; the kernel's one-transition entry and the graph's replay
+    timed per transition in turns, and the sampling stage's launch
+    (bitwise the recorded stage); the kernel fit within
+    total variation 0.05 of a CPU fit and of the graphed fit in its pole
+    distribution; (b)
     `python -m monte_carlo_gp_torch.serve` on the card, with the Elo and
     then the Bayesian model: the ready time, 50 requests at 10,000
     simulations and 10 at 1,048,576, their p50/p95 latency, same-seed bodies
@@ -75,9 +80,9 @@ lists the kernels, with their launches on their path, their error against
 the plain version, their times and their bounds, the golden check, their
 registers (ptxas) and the warps resident on an SM at their launch shape
 (with a `wide` list of the same readings at each wide field, the
-sharded entry's readings at each shard count, the HMC kernel's graph time
-per transition, shared memory and blocks resident, and each kernel's
-launches on every path that drives it, `launches_by_path`). Without a CUDA device it
+sharded entry's readings at each shard count, the HMC kernel's stage and
+per-transition times beside the graph's, shared memory and blocks resident,
+and each kernel's launches on every path that drives it, `launches_by_path`). Without a CUDA device it
 exits non-zero and prints no result.
 """
 
@@ -176,6 +181,8 @@ BAYES_POLE_TV, BAYES_ACCEPT = 0.05, (0.6, 0.99)
 BAYES_LEAPFROG = 48
 HMC_RECORD_AT = (0, 250, 499, 500, 999, 1000, 1500, 1999)
 HMC_TIME_CALLS, HMC_PLAIN_CALLS = 200, 5
+# launches of the stage entry timed on the recorded sampling stage
+HMC_STAGE_LAUNCHES = 3
 # the server: requests at its default count and at the main path's
 SERVE_SIMS, SERVE_REQUESTS, SERVE_BIG_REQUESTS, SERVE_SEED = 10_000, 50, 10, 7
 SERVE_TIMEOUT_S = 300
@@ -193,9 +200,13 @@ WALKTHROUGH_SECTIONS = ("=== FP2 prediction", "takes an engine penalty ===",
 WALKTHROUGH_RACES = 6
 
 # The roofline bound: the larger of the bytes each kernel must move over
-# the card's memory rate and its float32 operations over the card's float32
-# rate outside the tensor cores (H100 SXM data sheet, at 700 W).
-HBM_BYTES_PER_S, F32_FLOPS_PER_S = 3.35e12, 67e12
+# the card's memory rate and its operations over the card's rate for their
+# type outside the tensor cores, float32 and float64 (H100 SXM data sheet, at
+# 700 W). The float64 work (the HMC kernel's C·eff) is a matrix times one
+# vector per chain, 4 chains: the float64 tensor core's smallest product
+# (m8n8k4, 67 TFLOP/s) would carry 4 of its 8 columns, at most 33.5 TFLOP/s
+# of this work, under the 34 TFLOP/s of the vector units.
+HBM_BYTES_PER_S, F32_FLOPS_PER_S, F64_FLOPS_PER_S = 3.35e12, 67e12, 34e12
 
 
 def race_flops(d: int, laps: int, n_sims: int, passes: tuple[int, int]) -> int:
@@ -239,9 +250,12 @@ def pass_shares(passes: tuple[int, int], laps, n_sims: int) -> str:
     return f"{passes[0] / per:.4f} live and {passes[1] / per:.4f} swapping passes per lap"
 
 
-def bound(flops: float, n_bytes: float) -> tuple[float, str]:
-    """(bound_ms, bound_by): the least time the card could take."""
-    ops_ms, bytes_ms = flops / F32_FLOPS_PER_S * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
+def bound(flops: float, n_bytes: float, f64_flops: float = 0.0) -> tuple[float, str]:
+    """(bound_ms, bound_by): the least time the card could take for `flops`
+    float32 and `f64_flops` float64 operations and `n_bytes` moved. The two
+    types run on separate units, so the slower of the two sets the bound."""
+    ops_ms = max(flops / F32_FLOPS_PER_S, f64_flops / F64_FLOPS_PER_S) * 1e3
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
@@ -1072,10 +1086,11 @@ def start_cpu_fit(design, seed: int):
     return proc, out_path
 
 
-def hmc_flops(n: int, k: int, chains: int, n_leapfrog: int) -> int:
+def hmc_flops_rows(n: int, k: int, chains: int, n_leapfrog: int) -> int:
     """float32 operations of one HMC transition of `chains` chains over n
-    rows and k effect columns, counted from `csrc/hmc_kernel.cu` (an exp, a
-    sqrt or a division as one; the warp trees' adds not counted):
+    rows and k effect columns in the row form the HMC kernel took until its
+    statistics form (a pass over the rows per gradient; the figure kept
+    beside the new one):
       * per gradient: 5 per row (three adds, the square and its sum), 3 per
         row for its three column sums, 10 per effect column (its gradient 7,
         the next effect 3), 5 per parameter (the momentum and position
@@ -1088,19 +1103,51 @@ def hmc_flops(n: int, k: int, chains: int, n_leapfrog: int) -> int:
     return chains * ((n_leapfrog + 1) * per_gradient + 8 * dim + 2 * k + 30)
 
 
-def hmc_bytes(n: int, k: int, chains: int) -> int:
-    """The design read once (16 B a row; the column lists, 4 B per entry and
-    per start) and one transition's inputs read and outputs written once:
-    theta, inv_mass and z in and theta' out, (chains, 5 + k) float32; lp,
-    eps, u_jit and u_acc in and lp' and alpha out, (chains,)."""
-    return 16 * n + 4 * (3 * n + k + 1) + 4 * chains * (4 * (5 + k) + 6)
+def hmc_ops(k: int, nnz: int, chains: int, n_leapfrog: int, iters: int = 1,
+            adapt: bool = False) -> tuple[int, int]:
+    """(float64, float32) operations of `iters` transitions of `chains`
+    chains at k effect columns, counted from `csrc/hmc_kernel.cu` as these
+    inputs need them (an exp, a sqrt or a division as one; the warp trees'
+    adds not counted):
+      * per gradient, float64: the product C·eff's multiply and add for each
+        of the `nnz` non-zero counts of C (2 nnz: the team x team, driver x
+        driver and circuit x circuit blocks are diagonal, and most driver
+        and circuit pairs never meet; the kernel's product is dense),
+        the four range sums and b (4 K), sum(err^2)'s subtract, multiply and
+        add (3 K) and y^T y (1); float32: 10 per effect column (its gradient
+        7, the next effect 3), 5 per parameter (the momentum and position
+        updates) and 25 for the scalars;
+      * per transition, float32: the momentum (2 per parameter), the two
+        kinetic energies (3 per parameter each), logp (2 per effect column
+        and 20) and the accept (10);
+      * per warmup iteration, float32: the dual averaging (10) and, over the
+        stage's second half, Welford (5 per parameter)."""
+    dim = 5 + k
+    grads = chains * iters * (n_leapfrog + 1)
+    f64 = grads * (2 * nnz + 7 * k + 1)
+    f32 = grads * (10 * k + 5 * dim + 25) + chains * iters * (8 * dim + 2 * k + 30)
+    if adapt:
+        f32 += chains * (10 * iters + 5 * dim * (iters - iters // 2))
+    return f64, f32
+
+
+def hmc_bytes(k: int, chains: int, iters: int = 1, trace: bool = False) -> int:
+    """C (k x k) and b read once in float64; theta and inv_mass (chains, 5 +
+    k), eps and lp in; per iteration z (chains, 5 + k), u_jit and u_acc in;
+    theta, lp and alpha out; with `trace`, per iteration theta, lp, the step
+    size and alpha out; all float32 (each read or written once)."""
+    dim = 5 + k
+    n_in = 8 * (k * k + k) + 4 * chains * (2 * dim + 2) + 4 * iters * chains * (dim + 2)
+    n_out = 4 * chains * (dim + 2) + (4 * iters * chains * (dim + 3) if trace else 0)
+    return n_in + n_out
 
 
 def hmc_times(dev, kd, state: dict, n_leapfrog: int) -> dict:
-    """ms per call at one recorded state, taken in turns (graph, kernel,
-    kernel, graph): the kernel's launch, the captured graph's replay of the
-    eager transition (its inputs copied in, as in a graphed fit); then the
-    eager transition on the card, the plain version."""
+    """ms per transition at one recorded state, taken in turns (graph,
+    kernel, kernel, graph): the kernel's one-transition entry, the captured
+    graph's replay of the eager transition (its inputs copied in, as in a
+    graphed fit); then the eager transition on the card, the plain
+    version."""
     from monte_carlo_gp_torch.models import bayesian as B
     from monte_carlo_gp_torch.ops import hmc_kernel as H
 
@@ -1120,26 +1167,55 @@ def hmc_times(dev, kd, state: dict, n_leapfrog: int) -> dict:
     return {"kernel_ms": times["kernel"], "graph_ms": times["graph"], "plain_ms": plain}
 
 
+def hmc_stage_times(kd, stage: dict, n_leapfrog: int) -> dict:
+    """ms of each of HMC_STAGE_LAUNCHES launches of the stage entry on a
+    recorded stage's inputs (CUDA events, after one warm launch), and
+    whether every launch gave the recorded stage's trace and result
+    bitwise."""
+    from monte_carlo_gp_torch.ops import hmc_kernel as H
+
+    args = (kd, stage["theta"], stage["eps0"], stage["inv_mass"], *stage["draws"], n_leapfrog,
+            stage["adapt"])
+    want = stage["out"]
+    times, same = [], True
+    with torch.inference_mode():
+        H.hmc_stage(*args)
+        for _ in range(HMC_STAGE_LAUNCHES):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            got = H.hmc_stage(*args)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+            same = same and all(torch.equal(getattr(got, f), getattr(want, f)) for f in (
+                "theta", "lp", "alpha_mean", "trace_theta", "trace_lp", "trace_eps", "trace_alpha"))
+    return {"ms": times, "bitwise": same}
+
+
 def bayes_phase(dev, design, cpu_run) -> dict:
     """(a) The Bayesian qualifying model on the card: the weekend's plan
     through `F1Predictor(quali_model="bayesian")`, whose HMC fit of the
     synthetic archive (Bahrain 2024, `design`) runs on the card at the
-    default budget, every transition one launch of the HMC kernel (2,000
-    launches, 2 logp launches, no graph replay); three more kernel fits of
-    the same seed, bitwise equal to it, the first recording states at which
-    the kernel is held to the plain version per call and per transition
-    (`validate/hmc.py`); the same seed's eager fit on the card (the plain
-    version) and three graphed fits (`sample_posterior_graphed`, the
-    yardstick), the first bitwise the eager fit in `raw` and `accept_rate`,
-    all three bitwise equal, the device memory reserved at their peak not
-    growing after the first; the kernel's ms per launch and the graph's per
-    transition in turns at a sampled state; the CPU fit of the same seed
+    default budget as three launches of the HMC kernel's stage entry (no
+    per-transition or logp launch, no graph replay); three more kernel fits
+    of the same seed, bitwise equal to it, the first recording its stages
+    and 8 iterations: the one-transition entry from each recorded state
+    bitwise the stage trace's next state, and against the plain version per
+    call and per transition; the host replay of both warmup stages'
+    adaptation against the kernel's (`validate/hmc.py`); the same seed's
+    eager fit on the card (the plain version) and three graphed fits
+    (`sample_posterior_graphed`, the yardstick), the first bitwise the
+    eager fit in `raw` and `accept_rate`, all three bitwise equal, the
+    device memory reserved at their peak not growing after the first; the
+    kernel's one-transition entry and the graph per transition in turns at
+    a sampled state, and the sampling stage's launch, bitwise the recorded
+    stage; the CPU fit of the same seed
     that `cpu_run` (`start_cpu_fit`) ran meanwhile; the kernel fit's pole
     distribution within total variation 0.05 of the CPU fit's and of the
     graphed fit's; then the weekend's Monte Carlo through K1 at the server's
     default count, the in-process result the Bayesian server is held to.
-    Returns the readings, that result (`result`) and the kernels line's
-    `hmc_transition` entry (`kernel`)."""
+    Every check raises. Returns the readings, that result (`result`) and
+    the kernels line's HMC entry (`kernel`)."""
     import pickle
     import zlib
 
@@ -1158,14 +1234,21 @@ def bayes_phase(dev, design, cpu_run) -> dict:
     iters = model.num_warmup + model.num_samples
     timers = Phase()
     with timed_calls(B, "sample_posterior", timers):
-        H.hmc_transition.launches = H.hmc_logp.launches = B.transition_replays = 0
+        H.hmc_stage.launches = H.hmc_transition.launches = H.hmc_logp.launches = 0
+        B.transition_replays = 0
         plan, prepare_ms = plain_ms_of(lambda: predictor.prepare_weekend(2024, "Bahrain"))
-        launches = (H.hmc_transition.launches, H.hmc_logp.launches, B.transition_replays)
+        launches = (H.hmc_stage.launches, H.hmc_transition.launches, H.hmc_logp.launches,
+                    B.transition_replays)
     fit_s = timers.totals["sample_posterior"]
     post = model._posterior
     if not all(np.array_equal(getattr(post.design, f), getattr(design, f))
                for f in design.__dataclass_fields__):
         raise AssertionError("the predictor fitted another archive than the CPU reference's")
+    log(f"[bayes fit] HMC stage launches {launches[0]}, one-transition launches {launches[1]}, "
+        f"logp launches {launches[2]}, graph replays {launches[3]} in the Bayesian weekend's fit")
+    if launches != (3, 0, 0, 0):
+        raise AssertionError(f"the Bayesian weekend's fit did not run as three stage launches of "
+                             f"the HMC kernel: (stage, transition, logp, graph) {launches}")
 
     def fit(**kw):
         return plain_ms_of(lambda: B.sample_posterior(design, seed=model.seed, device=dev, **kw))
@@ -1173,7 +1256,7 @@ def bayes_phase(dev, design, cpu_run) -> dict:
     def equal(a, b) -> bool:
         return np.array_equal(a.raw, b.raw) and np.array_equal(a.accept_rate, b.accept_rate)
 
-    with hmc.recorded_transitions(HMC_RECORD_AT) as states:
+    with hmc.recorded_transitions(HMC_RECORD_AT) as rec:
         again, again_ms = fit()
     again_s, same = [again_ms / 1e3], equal(post, again)
     for _ in range(2):
@@ -1181,9 +1264,24 @@ def bayes_phase(dev, design, cpu_run) -> dict:
         again_s.append(again_ms / 1e3)
         same = same and equal(post, again)
     kd = B.kernel_design(design, dev)
-    check = hmc.kernel_vs_plain(kd, states, BAYES_LEAPFROG)
+    entry = hmc.trace_vs_entry(kd, rec.states, BAYES_LEAPFROG)
+    check = hmc.kernel_vs_plain(kd, rec.states, BAYES_LEAPFROG)
+    replay = hmc.adaptation_vs_replay(rec.stages)
+    log(f"[bayes kernel] the one-transition entry from the stage traces' states at iterations "
+        f"{list(HMC_RECORD_AT)}: {entry['differ']} of {entry['chains']} chain-transitions differ "
+        f"from the trace (max |d| {entry['max_abs']:.3e}); the host replay of the adaptation "
+        f"({replay['stages']} warmup stages): max relative |d| of the step sizes "
+        f"{replay['eps']:.3e}, final {replay['final_eps']:.3e} (rtol {hmc.EPS_RTOL}), variance "
+        f"{replay['var']:.3e}, mean alpha {replay['alpha_mean']:.3e} (rtol {hmc.VAR_RTOL}); "
+        f"bitwise {replay['bitwise']}")
+    if not entry["ok"]:
+        raise AssertionError(f"the one-transition entry departs from the stage trace: {entry}")
+    if not replay["ok"]:
+        raise AssertionError(f"the kernel's adaptation departs from its host replay: {replay}")
 
-    eager, eager_ms = fit(plain=True)
+    with hmc.recorded_transitions(()) as eager_rec:
+        eager, eager_ms = fit(plain=True)
+    eager_stage_ms = eager_rec.stages[2]["s"] * 1e3
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     graphed, graph_s, peaks, replays = [], [], [], []
@@ -1196,7 +1294,9 @@ def bayes_phase(dev, design, cpu_run) -> dict:
         replays.append(B.transition_replays)
     graph_is_eager = equal(graphed[0], eager)
     graphs_same = all(equal(g, graphed[0]) for g in graphed[1:])
-    times = hmc_times(dev, kd, states[-1], BAYES_LEAPFROG)
+    times = hmc_times(dev, kd, rec.states[-1], BAYES_LEAPFROG)
+    sampling = rec.stages[2]
+    stage_times = hmc_stage_times(kd, sampling, BAYES_LEAPFROG)
 
     proc, out_path = cpu_run
     if proc.wait(timeout=SERVE_TIMEOUT_S) != 0:
@@ -1222,27 +1322,46 @@ def bayes_phase(dev, design, cpu_run) -> dict:
     kernel_ms = float(np.mean(times["kernel_ms"]))
     graph_ms = float(np.mean(times["graph_ms"]))
     n, k, chains = kd.n_rows, kd.n_cols, post.raw.shape[0]
-    bound_ms, bound_by = bound(hmc_flops(n, k, chains, BAYES_LEAPFROG), hmc_bytes(n, k, chains))
+    n_samples = sampling["draws"][0].shape[0]
+    stage_ms = float(np.mean(stage_times["ms"]))
+    us_per_gradient = stage_ms * 1e3 / (n_samples * (BAYES_LEAPFROG + 1))
+    nnz = int(torch.count_nonzero(kd.counts))
+    f64, f32 = hmc_ops(k, nnz, chains, BAYES_LEAPFROG, n_samples)
+    bound_ms, bound_by = bound(f32, hmc_bytes(k, chains, n_samples, trace=True), f64)
+    f64_1, f32_1 = hmc_ops(k, nnz, chains, BAYES_LEAPFROG)
+    step_bound_ms, step_bound_by = bound(f32_1, hmc_bytes(k, chains), f64_1)
+    rows_bound_ms, rows_bound_by = bound(hmc_flops_rows(n, k, chains, BAYES_LEAPFROG),
+                                         16 * n + 4 * (3 * n + k + 1)
+                                         + 4 * chains * (4 * (5 + k) + 6))
+    stage_wall = ", ".join(f"{st['s'] * 1e3:.3f}" for st in rec.stages)
     facts = H.ptxas_facts(H.build().with_suffix(".log").read_text())
-    blocks = H.blocks_per_sm(dev, n, k)
+    blocks = H.blocks_per_sm(dev, k)
     log(f"[bayes fit] synthetic archive before Bahrain 2024: {n} rows, {k} effect columns, "
         f"{post.raw.shape[2]} parameters; {chains} chains x {iters} iterations x {BAYES_LEAPFROG} "
-        f"leapfrog steps on {dev}: kernel fit {fit_s:.3f} s ({fit_s / iters * 1e3:.4f} ms per "
-        f"iteration; HMC kernel launches {launches[0]}, logp launches {launches[1]}, graph replays "
-        f"{launches[2]}) inside the Bayesian weekend's prepare of {prepare_ms / 1e3:.3f} s; three "
-        f"kernel fits again {', '.join(f'{x:.3f}' for x in again_s)} s, bitwise equal {same}")
-    log(f"[bayes kernel] one launch per transition: {', '.join(f'{x:.4f}' for x in times['kernel_ms'])} "
-        f"ms (kernel turns; {HMC_TIME_CALLS} launches each, CUDA events) against the graph's "
-        f"{', '.join(f'{x:.4f}' for x in times['graph_ms'])} ms per transition (graph turns) and "
-        f"the eager transition's {times['plain_ms']:.3f} ms, at iteration {HMC_RECORD_AT[-1]}'s "
-        f"state; an iteration of the kernel fit {fit_s / iters * 1e3:.4f} ms of wall beside "
-        f"{kernel_ms:.4f} ms of launch; bound {bound_ms * 1e3:.4f} us ({bound_by}); "
-        f"{facts.get('registers')} registers, {facts.get('spill_stores')} B spill stores, "
-        f"{H.shared_bytes(n, k)} B shared memory, {blocks} block(s) of {H.THREADS} threads "
-        f"resident per SM; against the plain version at {check['states']} recorded states "
-        f"({check['chains']} chain-transitions): max |dlogp| {check['logp']:.3e}, max |dgrad| "
-        f"{check['grad']:.3e}, max |dtheta'| {check['theta']:.3e}, max |dlp'| {check['lp']:.3e}, "
-        f"max |dalpha| {check['alpha']:.3e}, accept decisions differing {check['decisions_differ']} "
+        f"leapfrog steps on {dev}: kernel fit {fit_s:.4f} s ({fit_s / iters * 1e3:.4f} ms per "
+        f"iteration; 3 stage launches) inside the Bayesian weekend's prepare of "
+        f"{prepare_ms / 1e3:.3f} s; three kernel fits again "
+        f"{', '.join(f'{x:.4f}' for x in again_s)} s, bitwise equal {same}; its stages "
+        f"{stage_wall} ms of wall")
+    launch_ms = ", ".join(f"{x:.3f}" for x in stage_times["ms"])
+    log(f"[bayes kernel] the sampling stage ({n_samples} transitions) per launch: {launch_ms} "
+        f"ms (CUDA events; bitwise the recorded stage {stage_times['bitwise']}): "
+        f"{stage_ms / n_samples * 1e3:.3f} us per transition, {us_per_gradient:.4f} us per "
+        f"gradient; bound {bound_ms * 1e3:.3f} us "
+        f"({bound_by}: {f64:.4g} float64 operations over C's {nnz} non-zero counts of {k * k}, "
+        f"{f32:.4g} float32); the eager sampling "
+        f"stage {eager_stage_ms:.1f} ms. One transition: the entry "
+        f"{', '.join(f'{x:.4f}' for x in times['kernel_ms'])} ms (kernel turns; {HMC_TIME_CALLS} "
+        f"launches each) against the graph's {', '.join(f'{x:.4f}' for x in times['graph_ms'])} ms "
+        f"(graph turns) and the eager transition's {times['plain_ms']:.3f} ms, at iteration "
+        f"{HMC_RECORD_AT[-1]}'s state; bound {step_bound_ms * 1e6:.2f} ns ({step_bound_by}), the "
+        f"row form's {rows_bound_ms * 1e6:.2f} ns ({rows_bound_by}); {facts} (largest over the "
+        f"instances), {H.shared_bytes(k)} B shared memory, {blocks} block(s) of {H.WARPS * 32} "
+        f"threads resident per SM, at most {H.max_cols(dev)} effect columns; against the plain "
+        f"version at {check['states']} recorded states ({check['chains']} chain-transitions): "
+        f"max |dlogp| {check['logp']:.3e}, max |dgrad| {check['grad']:.3e}, max |dtheta'| "
+        f"{check['theta']:.3e}, max |dlp'| {check['lp']:.3e}, max |dalpha| {check['alpha']:.3e}, "
+        f"accept decisions differing {check['decisions_differ']} "
         f"({check['decisions_differ_outside_margin']} outside |u - alpha| <= {hmc.ALPHA_MARGIN}); "
         f"within rtol {hmc.RTOL}, atol {hmc.ATOL} (theta' atol {hmc.THETA_ATOL}): {check['ok']}")
     log(f"[bayes graph] the eager fit of the same seed on the card {eager_s:.3f} s "
@@ -1256,10 +1375,7 @@ def bayes_phase(dev, design, cpu_run) -> dict:
         f"{np.allclose(grid.sum(axis=1), 1.0, atol=1e-6)}; K1 launches {k1}, K2 {k2} at "
         f"{SERVE_SIMS} sims; phase {time.perf_counter() - t0:.1f} s")
     lo, hi = BAYES_ACCEPT
-    if launches != (iters, 2, 0):
-        raise AssertionError(f"the Bayesian weekend's fit did not run through the HMC kernel: "
-                             f"(launches, logp launches, graph replays) {launches}")
-    if not (same and check["ok"]):
+    if not (same and check["ok"] and stage_times["bitwise"]):
         raise AssertionError("the HMC kernel is not reproducible or departs from its plain version")
     if not (graph_is_eager and graphs_same and replays == [iters] * 3):
         raise AssertionError("the graphed fit is not the eager fit replayed through its graph")
@@ -1270,31 +1386,46 @@ def bayes_phase(dev, design, cpu_run) -> dict:
             and np.allclose(grid.sum(axis=1), 1.0, atol=1e-6) and (k1, k2) == (1, 0)):
         raise AssertionError("the Bayesian fit on the card failed a check")
     kernel = {
-        "name": "hmc_transition",
+        "name": "hmc_stage",
         "route": "cuda",
         "source": "monte_carlo_gp_torch/csrc/hmc_kernel.cu",
-        "replaces": "monte_carlo_gp_tpu/models/bayesian.py:262",
-        "replaces_what": "_leapfrog (:247-259) and _hmc_transition (:262-284), computed by XLA "
-                         "with no Pallas kernel",
+        "replaces": "monte_carlo_gp_tpu/models/bayesian.py:287",
+        "replaces_what": "_warmup_scan (:287-333) and _sample_chain (:336-360) with _leapfrog "
+                         "(:247-259) and _hmc_transition (:262-284) inside, computed by XLA with "
+                         "no Pallas kernel",
         "launches": launches[0],
-        "launches_by_path": {"bayesian weekend": launches[0], "logp entry": launches[1]},
+        "launches_by_path": {"bayesian weekend": launches[0], "one-transition entry": launches[1],
+                             "logp entry": launches[2]},
         "max_abs_err": check["theta"],
         "max_abs_err_of": {k: check[k] for k in ("logp", "grad", "theta", "lp", "alpha")},
+        "entry_vs_trace_differ": entry["differ"],
+        "adaptation_vs_replay": {k: replay[k] for k in ("eps", "final_eps", "var", "alpha_mean",
+                                                         "bitwise")},
         "decisions_differ": check["decisions_differ"],
-        "ms": kernel_ms,
-        "ms_turns": times["kernel_ms"],
-        "graph_ms": graph_ms,
-        "graph_ms_turns": times["graph_ms"],
-        "plain_ms": times["plain_ms"],
+        "ms": stage_ms,
+        "ms_of": f"one launch of the sampling stage ({n_samples} transitions)",
+        "ms_launches": stage_times["ms"],
+        "us_per_gradient": us_per_gradient,
+        "plain_ms": eager_stage_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "counts_nonzero": nnz,
         "library_ms": None,
+        "transition_ms": kernel_ms,
+        "transition_ms_turns": times["kernel_ms"],
+        "graph_ms": graph_ms,
+        "graph_ms_turns": times["graph_ms"],
+        "transition_plain_ms": times["plain_ms"],
+        "transition_bound_ms": step_bound_ms,
+        "transition_bound_ms_rows": rows_bound_ms,
         "fit_s": fit_s,
         "ms_per_iteration": fit_s / iters * 1e3,
+        "stage_s": [st["s"] for st in rec.stages],
         **facts,
-        "shared_bytes": H.shared_bytes(n, k),
-        "threads_per_block": H.THREADS,
+        "shared_bytes": H.shared_bytes(k),
+        "threads_per_block": H.WARPS * 32,
         "blocks_per_sm": blocks,
+        "max_cols": H.max_cols(dev),
         "rows": n,
     }
     return {"rows": n, "dim": int(post.raw.shape[2]), "fit_s": fit_s,

@@ -1,57 +1,79 @@
-// One whole HMC transition of every chain of the Bayesian qualifying model
-// in one launch, for Hopper (sm_90a).
+// A whole stage of the Bayesian qualifying model's HMC fit, every chain, in
+// one launch, for Hopper (sm_90a).
 //
 // What it replaces. The JAX fit (monte_carlo_gp_tpu/models/bayesian.py) is one
-// compiled program: its _leapfrog (:247-259, a lax.fori_loop) and
-// _hmc_transition (:262-284) run inside lax.scans over the transitions,
-// vmapped over the chains, and XLA computes them; no Pallas kernel is
-// involved. The port's plain version is _hmc_transition with the hand-written
-// gradient of make_log_posterior (monte_carlo_gp_torch/ops/hmc_kernel.py::
-// hmc_transition_plain, models/bayesian.py), about 1,550 small launches per
-// transition. Here one block runs one chain through all of it: the momentum
-// z / sqrt(inv_mass), the step jitter eps * (0.8 + 0.4 u_jit), the leapfrog
-// trajectory with its n_leapfrog + 1 gradients in the plain version's order
-// of operations, logp at the proposal, both kinetic energies, alpha and the
-// accept against u_acc. It draws nothing: z, u_jit and u_acc are inputs. With
-// n_leapfrog = 0 it computes logp (and, given grad_out, the gradient) at theta
-// alone: each warmup stage's starting logp, so every lp of a card fit has the
-// same summation order.
+// compiled program: _leapfrog (:247-259, a lax.fori_loop) and _hmc_transition
+// (:262-284) inside _warmup_scan (:287-333, the dual averaging and Welford
+// updates) and _sample_chain (:336-360), lax.scans over the transitions,
+// vmapped over the chains; XLA computes them and no Pallas kernel is
+// involved. The port's plain version is stage_plain with the eager
+// transition and the hand-written gradient of make_log_posterior
+// (monte_carlo_gp_torch/ops/hmc_kernel.py, models/bayesian.py). Here one block
+// runs one chain through a whole warmup or sampling stage: per iteration the
+// momentum z / sqrt(inv_mass), the step jitter eps * (0.8 + 0.4 u_jit), the
+// leapfrog trajectory with its n_leapfrog + 1 gradients, logp at the
+// proposal, both kinetic energies, alpha and the accept against u_acc; in a
+// warmup stage the dual-averaging update of the step size and, over the
+// stage's second half, the Welford variance; and the trace (theta, lp, the
+// step size used, alpha). It draws nothing: z, u_jit and u_acc are inputs.
+// The one-transition entry (iters = 1 from a given lp) and the logp entry
+// (iters = 0) run the same code.
 //
-// What bounds it. Per transition and chain the work is n_leapfrog + 1 passes
-// over the N training rows (N ~ 5,100: three gathers and a few adds per row,
-// then each row's residual summed into its three effect columns) and a
-// 5 + K parameter update (K ~ 50): about 2·10^6 float32 operations a chain,
-// 0.12 µs for 4 chains at 67 TFLOP/s, and ~0.14 MB of design read once,
-// 0.04 µs at 3.35 TB/s. Neither sets the pace: the 49 gradients are a chain of
-// dependent block-wide reductions, so the time is their latency (shared-memory
-// and L1 round trips and three __syncthreads per gradient).
+// The statistics form. Every training row has one team, one driver and one
+// circuit column, so with A the (N, K) one-hot design and err = A eff - y the
+// effects' gradient A^T err = C eff - b and sum(err^2) = eff.(C eff - b) -
+// b.eff + y^T y, with C = A^T A (integer co-occurrence counts) and b = A^T y,
+// built once per fit on the host. A gradient never reads a row: it is one
+// K x K product (K = T + D + C ~ 50) and two K-long sums.
 //
-// What the design does about it. One block of 1,024 threads per chain
-// (chains are independent, so blocks never wait on each other), and the whole
-// trajectory inside the launch: the state (theta, p, inv_mass, the gradient),
-// the effects and every row's residual stay in shared memory; only the design
-// (16 B a row, and the column lists) is read from device memory, from L1/L2
-// after the first gradient. Per gradient:
-//   1. every thread forms err_i = eff[t_i] + eff[T+d_i] + eff[T+D+c_i] - y_i
-//      for rows i = tid, tid + 1024, ..., keeps it in shared memory, and sums
-//      err_i^2 in that order; a fixed shuffle tree per warp, then one over the
-//      32 warp partials, gives sum(err^2);                       __syncthreads
-//   2. warp w sums the residuals of effect columns w, w + 32, ... over the
-//      column's rows (a CSR list built once per fit, in row order), each lane
-//      strided by 32, then a fixed __shfl_xor tree;              __syncthreads
-//   3. warp 0 forms the 5 + K gradient, the momentum and position updates and
-//      the next effects.                                         __syncthreads
-// Every sum has a fixed order and there are no float atomics, so the same
-// inputs give bitwise the same outputs on every run. Built with --fmad=false:
-// a*b + c stays a multiply and an add, as in the plain version.
+// What bounds it. Per transition and chain, ~49 x (2 K^2 + O(K)) ~ 2.6e5
+// float64 operations as the product takes them, densely (the work the
+// inputs need is about half: C's team x team, driver x driver and circuit x
+// circuit blocks are diagonal), and a few hundred bytes of draws and trace:
+// under 0.03 us for 4 chains at the card's 34 TFLOP/s float64 rate. Neither
+// rate sets the pace: the 49 gradients of a transition, and the transitions
+// of a stage, are a chain of dependent steps, so the time is their latency
+// (the K x K product's dependent adds, warp 0's update with its shuffle
+// trees, and the two barriers between them).
+//
+// What the design does about it. One block of 4 warps per chain (chains
+// are independent, so blocks never wait on each other; one warp per chain,
+// synchronised by __syncwarp alone, ran slower on the H100, PERF.md), and a
+// whole stage inside the launch, so the host neither launches nor adapts
+// between transitions. C (float64, padded with zero rows to 4 equal ranges), the
+// effects and the product's range sums live in shared memory; the chain's
+// state (theta, its start, p, inv_mass, the gradient, b and the effects of
+// the lane's columns, the Welford sums) lives in warp 0's registers, lane L
+// holding parameters L, L + 32, ... (S = ceil(dim / 32) of them, a template
+// argument), so the update reads no shared memory. Device memory is read for
+// C once and for each iteration's draws, and written for the trace. Per
+// gradient:
+//   1. the product (all warps): effect k's sum over the columns j in 4
+//      contiguous ranges, each summed in column order from 0 (warp w takes
+//      range w, its lane k effects k and k + 32);                   barrier
+//   2. warp 0: colsum_k = ((p0 + p1) + p2) + p3 - b_k and sum(err^2) = the
+//      lane sums of eff_k (colsum_k - b_k) (effect k in lane (5 + k) % 32,
+//      in order), a fixed butterfly, + y^T y; then the float32 gradient,
+//      momentum and position updates, the scales broadcast from lanes 0-4
+//      by shuffles, and the next effects into shared memory;        barrier
+// Why float64. Near the posterior C eff ~ b to within colsum (|b_k| ~ 10^3,
+// |colsum_k| ~ 10), so float32 rounding of each term alone (~10^-4) times
+// 1/sigma^2 (up to ~10^3) would move the gradient far outside the plain
+// version's tolerance. Each product of a count (an integer below 2^29) and a
+// float32 effect is exact in float64, so fma(count, eff, acc) is acc + the
+// product rounded once, as the plain version's multiply and add; every sum
+// has a fixed order and there are no atomics, so the same inputs give
+// bitwise the same outputs on every run. Built with --fmad=false: a*b + c
+// stays a multiply and an add.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 1024;  // ops/hmc_kernel.py: THREADS
-constexpr int kWarps = kThreads / 32;
 constexpr int kScalars = 5;  // team_mu and the four log-scales lead theta
+constexpr int kRanges = 4;   // ops/hmc_kernel.py: RANGES
+constexpr int kWarps = 4;    // ops/hmc_kernel.py: WARPS; warp w sums range w
+static_assert(kWarps == kRanges, "one warp per range of the product");
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Shape {
@@ -63,6 +85,22 @@ struct Prior {
   float p0, p1, p2, p3;
 };
 
+// One launch's inputs and outputs (mcgp_hmc_run).
+struct Args {
+  const double* counts;  // (k, k) C = A^T A, symmetric
+  const double* bvec;    // (k,) b = A^T y
+  double yty;
+  Shape s;
+  Prior pr;
+  int adapt;                // a warmup stage: dual averaging and Welford
+  double t0, gamma, kappa;  // the dual averaging's constants
+  float target, log10, var_lo, var_hi;
+  const float *theta, *lp, *eps, *inv_mass, *z, *u_jit, *u_acc;
+  float *theta_out, *lp_out, *alpha_out, *grad_out, *eps_out, *var_out, *lp0_out;
+  float *trace_theta, *trace_lp, *trace_eps, *trace_alpha;
+  int chains, iters, n_leapfrog;
+};
+
 __device__ __forceinline__ float pick4(int j, float a0, float a1, float a2, float a3) {
   return j == 0 ? a0 : (j == 1 ? a1 : (j == 2 ? a2 : a3));
 }
@@ -70,6 +108,12 @@ __device__ __forceinline__ float pick4(int j, float a0, float a1, float a2, floa
 // The sum over the warp's 32 lanes by a fixed butterfly: every lane ends
 // with the same bits.
 __device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = v + __shfl_xor_sync(kFull, v, off);
+  return v;
+}
+
+__device__ __forceinline__ double warp_sum(double v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v = v + __shfl_xor_sync(kFull, v, off);
   return v;
@@ -87,13 +131,39 @@ struct Scales {
   __device__ __forceinline__ float sig(int j) const { return pick4(j, s0, s1, s2, s3); }
 };
 
-__device__ __forceinline__ Scales read_scales(const float* th) {
+// The block's shared memory, float64: C padded with zero rows to kp =
+// kRanges * ceil(k / kRanges) (every range of the product has the same width;
+// adding 0 * 0 leaves a sum as it is), the effects (kp, zero past k) and the
+// product's range sums (kRanges, k).
+__device__ __forceinline__ int padded(int k) { return (k + kRanges - 1) / kRanges * kRanges; }
+
+// Dynamic shared memory of one block at k effect columns (ops/hmc_kernel.py:
+// shared_bytes).
+size_t shared_bytes(int k) {
+  const int kp = (k + kRanges - 1) / kRanges * kRanges;
+  return (size_t)(kp * k + kp + kRanges * k) * sizeof(double);
+}
+
+// The chain's state in warp 0's registers: lane L owns the parameters
+// i = L + 32 j, j < S (ops/hmc_kernel.py: SLOTS is the largest S), the effect
+// k = i - 5 where i >= 5.
+template <int S>
+struct Lane {
+  float th[S], th0[S], p[S], im[S], g[S], w_mean[S], w_m2[S];
+  double b[S], e[S];  // b_k and eff_k of the lane's effects
+  int seg[S];         // the effect's scale: 0 team, 1 driver, 2 circuit; -1 a
+                      // scalar parameter; -2 past the last parameter
+};
+
+// The scalar part of theta, broadcast from lanes 0-4 (warp 0).
+template <int S>
+__device__ __forceinline__ Scales read_scales(const Lane<S>& L) {
   Scales s;
-  s.team_mu = th[0];
-  s.l0 = th[1];
-  s.l1 = th[2];
-  s.l2 = th[3];
-  s.l3 = th[4];
+  s.team_mu = __shfl_sync(kFull, L.th[0], 0);
+  s.l0 = __shfl_sync(kFull, L.th[0], 1);
+  s.l1 = __shfl_sync(kFull, L.th[0], 2);
+  s.l2 = __shfl_sync(kFull, L.th[0], 3);
+  s.l3 = __shfl_sync(kFull, L.th[0], 4);
   s.s0 = expf(s.l0);
   s.s1 = expf(s.l1);
   s.s2 = expf(s.l2);
@@ -102,77 +172,87 @@ __device__ __forceinline__ Scales read_scales(const float* th) {
   return s;
 }
 
-// eff_k = team_mu * [k is a team column] + raw_k * scale_k (warp 0).
-__device__ __forceinline__ void write_effects(const float* th, float* eff, const Shape& s,
-                                              int lane) {
-  const Scales sc = read_scales(th);
-  for (int k = lane; k < s.k; k += 32) {
-    const int seg = segment(k, s);
-    const float mask = seg == 0 ? 1.0f : 0.0f;
-    eff[k] = sc.team_mu * mask + th[kScalars + k] * sc.sig(seg);
+// eff_k = team_mu * [k is a team column] + raw_k * scale_k, widened to
+// float64 into the lane's registers and shared memory (warp 0); returns the
+// scales at theta, which the gradient and logp there take.
+template <int S>
+__device__ __forceinline__ Scales write_effects(Lane<S>& L, double* effd, int lane) {
+  const Scales sc = read_scales(L);
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    if (L.seg[j] < 0) continue;
+    const float mask = L.seg[j] == 0 ? 1.0f : 0.0f;
+    L.e[j] = (double)(sc.team_mu * mask + L.th[j] * sc.sig(L.seg[j]));
+    effd[lane + 32 * j - kScalars] = L.e[j];
+  }
+  return sc;
+}
+
+// Step 1 (all warps): part[w][k] = sum over the columns j of range w, in
+// column order, of C[j][k] eff_j. A lane takes effects k and k + 32 at once:
+// two independent sums.
+__device__ __forceinline__ void product(const double* c, const double* effd, double* part,
+                                        const Shape& s, int warp, int lane) {
+  const int width = padded(s.k) / kRanges;
+  const int j0 = warp * width;
+  for (int k0 = lane; k0 < s.k; k0 += 64) {
+    const bool two = k0 + 32 < s.k;
+    const int k1 = two ? k0 + 32 : k0;
+    double a0 = 0.0, a1 = 0.0;
+#pragma unroll 4
+    for (int j = j0; j < j0 + width; ++j) {
+      const double e = effd[j];
+      const double* row = c + j * s.k;  // C is symmetric: C[j][k] = C[k][j]
+      a0 = fma(row[k0], e, a0);
+      a1 = fma(row[k1], e, a1);
+    }
+    double* out = part + warp * s.k;
+    out[k0] = a0;
+    if (two) out[k1] = a1;
   }
 }
 
-// Step 1: every row's residual into err, and each warp's sum of its threads'
-// err^2 (each thread's rows in row order) into warp_sq.
-__device__ __forceinline__ void row_pass(const int4* __restrict__ rows, const float* eff,
-                                         float* err, float* warp_sq, int n) {
-  float sq = 0.0f;
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    const int4 r = __ldg(rows + i);
-    float e = eff[r.x] + eff[r.y];
-    e = e + eff[r.z];
-    e = e + __int_as_float(r.w);
-    err[i] = e;
-    sq = sq + e * e;
-  }
-  sq = warp_sum(sq);
-  if ((threadIdx.x & 31) == 0) warp_sq[threadIdx.x >> 5] = sq;
-}
-
-// Step 2: each effect column's sum of its rows' residuals into colsum.
-__device__ __forceinline__ void column_pass(const int* __restrict__ col_start,
-                                            const int* __restrict__ col_rows, const float* err,
-                                            float* colsum, int k_cols) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int k = warp; k < k_cols; k += kWarps) {
-    const int end = __ldg(col_start + k + 1);
-    float v = 0.0f;
-    for (int j = __ldg(col_start + k) + lane; j < end; j += 32) v = v + err[__ldg(col_rows + j)];
-    v = warp_sum(v);
-    if (lane == 0) colsum[k] = v;
-  }
-}
-
-// Step 3's gradient (warp 0): d logp / d theta into g, from the column sums
-// and sum(err^2) at the state th.
-__device__ __forceinline__ void gradient(const float* th, const float* colsum, float sq, float* g,
-                                         const Shape& s, Prior pr, int lane) {
-  const Scales sc = read_scales(th);
+// Step 2 (warp 0): from the range sums, colsum = C eff - b in float64 and
+// sum(err^2) = sum_k eff_k (colsum_k - b_k) + y^T y, each lane's effects in
+// order, then a fixed butterfly, rounded to float32 (every lane returns
+// it); and from colsum rounded to float32, d logp / d theta into the lanes'
+// g (scales sc).
+template <int S>
+__device__ __forceinline__ float gradient(Lane<S>& L, const double* part, const Scales& sc,
+                                          double yty, const Shape& s, Prior pr, int lane) {
   const float neg_inv_var = -sc.inv_var;
+  double t = 0.0;
   float team = 0.0f, seg0 = 0.0f, seg1 = 0.0f, seg2 = 0.0f;
-  for (int k = lane; k < s.k; k += 32) {
-    const int seg = segment(k, s);
-    const float raw = th[kScalars + k];
-    const float g_eff = colsum[k] * neg_inv_var;  // d logp / d effect
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    if (L.seg[j] < 0) continue;
+    const int k = lane + 32 * j - kScalars;
+    double v = part[k] + part[s.k + k];
+    v = v + part[2 * s.k + k];
+    v = v + part[3 * s.k + k];
+    v = v - L.b[j];
+    t = t + L.e[j] * (v - L.b[j]);
+    const float raw = L.th[j];
+    const float g_eff = (float)v * neg_inv_var;  // d logp / d effect
     const float gr = g_eff * raw;
-    if (seg == 0) {
+    if (L.seg[j] == 0) {
       team = team + g_eff;
       seg0 = seg0 + gr;
-    } else if (seg == 1) {
+    } else if (L.seg[j] == 1) {
       seg1 = seg1 + gr;
     } else {
       seg2 = seg2 + gr;
     }
-    g[kScalars + k] = -raw + sc.sig(seg) * g_eff;
+    L.g[j] = -raw + sc.sig(L.seg[j]) * g_eff;
   }
+  const float sq = (float)(warp_sum(t) + yty);
   team = warp_sum(team);
   seg0 = warp_sum(seg0);
   seg1 = warp_sum(seg1);
   seg2 = warp_sum(seg2);
   const float g_obs = sq * sc.inv_var - (float)s.n;
   if (lane == 0) {
-    g[0] = team - sc.team_mu;
+    L.g[0] = team - sc.team_mu;
   } else if (lane < kScalars) {
     // the prior's 1 - (sigma / scale)^2, the scale's sum of d logp / d effect
     // * raw, and the likelihood's sum(resid^2) - n for the observation noise
@@ -180,20 +260,20 @@ __device__ __forceinline__ void gradient(const float* th, const float* colsum, f
     const float sig = sc.sig(j);
     float v = 1.0f - (sig * sig) * pick4(j, pr.p0, pr.p1, pr.p2, pr.p3);
     v = v + sig * pick4(j, seg0, seg1, seg2, 0.0f);
-    g[lane] = v + g_obs * (j == 3 ? 1.0f : 0.0f);
+    L.g[0] = v + g_obs * (j == 3 ? 1.0f : 0.0f);
   }
+  return sq;
 }
 
-// logp at the state th whose rows gave sum(err^2) = sq (warp 0; every lane
-// returns it).
-__device__ __forceinline__ float log_density(const float* th, float sq, const Shape& s,
-                                             Prior pr, int lane) {
-  const Scales sc = read_scales(th);
+// logp at theta (scales sc) whose rows gave sum(err^2) = sq (warp 0; every
+// lane returns it).
+template <int S>
+__device__ __forceinline__ float log_density(const Lane<S>& L, const Scales& sc, float sq,
+                                             const Shape& s, Prior pr) {
   float raw2 = 0.0f;
-  for (int k = lane; k < s.k; k += 32) {
-    const float r = th[kScalars + k];
-    raw2 = raw2 + r * r;
-  }
+#pragma unroll
+  for (int j = 0; j < S; ++j)
+    if (L.seg[j] >= 0) raw2 = raw2 + L.th[j] * L.th[j];
   raw2 = warp_sum(raw2);
   float prior = (-0.5f * (sc.s0 * sc.s0)) * pr.p0 + sc.l0;
   prior = prior + ((-0.5f * (sc.s1 * sc.s1)) * pr.p1 + sc.l1);
@@ -207,124 +287,229 @@ __device__ __forceinline__ float log_density(const float* th, float sq, const Sh
 }
 
 // 0.5 * sum(p * inv_mass * p) (warp 0; every lane returns it).
-__device__ __forceinline__ float kinetic(const float* p, const float* im, int dim, int lane) {
+template <int S>
+__device__ __forceinline__ float kinetic(const Lane<S>& L) {
   float v = 0.0f;
-  for (int i = lane; i < dim; i += 32) {
-    const float pi = p[i];
-    v = v + (pi * im[i]) * pi;
-  }
+#pragma unroll
+  for (int j = 0; j < S; ++j)
+    if (L.seg[j] > -2) v = v + (L.p[j] * L.im[j]) * L.p[j];
   return 0.5f * warp_sum(v);
 }
 
-// theta (chains, dim) etc. as in ops/hmc_kernel.py::hmc_transition; one block
-// per chain. n_leapfrog = 0: lp_out = logp(theta) and, when grad_out is not
-// null, grad_out = its gradient; the other pointers are not read.
-__global__ void __launch_bounds__(kThreads)
-    hmc_kernel(const int4* __restrict__ rows, const int* __restrict__ col_start,
-               const int* __restrict__ col_rows, int n, int t, int d, int c, Prior pr,
-               const float* __restrict__ theta_in, const float* __restrict__ lp_in,
-               const float* __restrict__ eps_in, const float* __restrict__ inv_mass_in,
-               const float* __restrict__ z_in, const float* __restrict__ u_jit_in,
-               const float* __restrict__ u_acc_in, float* __restrict__ theta_out,
-               float* __restrict__ lp_out, float* __restrict__ alpha_out,
-               float* __restrict__ grad_out, int n_leapfrog) {
-  extern __shared__ float smem[];
-  const Shape s{n, t, d, t + d + c, kScalars + t + d + c};
-  float* th = smem;             // the position
-  float* th0 = th + s.dim;      // the chain's state, for a rejection
-  float* p = th0 + s.dim;       // the momentum
-  float* im = p + s.dim;        // inv_mass
-  float* g = im + s.dim;        // the gradient
-  float* eff = g + s.dim;       // (K,) effects
-  float* colsum = eff + s.k;    // (K,) residual sums per effect column
-  float* warp_sq = colsum + s.k;  // (32,) warp partials of sum(err^2)
-  float* err = warp_sq + kWarps;  // (N,) residuals
+// One block of kWarps warps per chain, S parameters per lane of warp 0; see
+// mcgp_hmc_run for the modes.
+template <int S>
+__global__ void __launch_bounds__(kWarps * 32) hmc_kernel(const Args a) {
+  extern __shared__ double smem[];
+  const Shape s = a.s;
+  const int kp = padded(s.k);
+  double* c = smem;            // (kp, k) the counts, zero rows past k
+  double* effd = c + kp * s.k;  // (kp,) the effects, zero past k
+  double* part = effd + kp;     // (kRanges, k) the product's range sums
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool lead = warp == 0;  // warp 0 keeps and updates the chain's state
+  const int chain = blockIdx.x;
+  const size_t base = (size_t)chain * s.dim;
+  const bool adapt = a.adapt != 0;
 
-  const bool move = n_leapfrog > 0;
-  const bool want_grad = move || grad_out != nullptr;
-  const int lane = threadIdx.x & 31;
-  const bool lead = threadIdx.x < 32;  // warp 0 updates the state
-  const size_t base = (size_t)blockIdx.x * s.dim;
-
-  for (int i = threadIdx.x; i < s.dim; i += kThreads) {
-    const float v = theta_in[base + i];
-    th[i] = v;
-    th0[i] = v;
-    if (move) {
-      const float m = inv_mass_in[base + i];
-      im[i] = m;
-      p[i] = z_in[base + i] / sqrtf(m);  // p ~ N(0, M), M = 1 / inv_mass
-    }
-  }
-  __syncthreads();
-  float eps = 0.0f, half = 0.0f, ke0 = 0.0f;
-  if (lead) {
-    if (move) {
-      eps = eps_in[blockIdx.x] * (0.8f + 0.4f * u_jit_in[blockIdx.x]);
-      half = 0.5f * eps;
-      ke0 = kinetic(p, im, s.dim, lane);
-    }
-    write_effects(th, eff, s, lane);
+  for (int i = threadIdx.x; i < kp * s.k; i += kWarps * 32) c[i] = i < s.k * s.k ? a.counts[i] : 0.0;
+  for (int i = threadIdx.x; i < kp; i += kWarps * 32) effd[i] = 0.0;
+  Lane<S> L;
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    const int i = lane + 32 * j, k = i - kScalars;
+    L.seg[j] = i >= s.dim ? -2 : (k < 0 ? -1 : segment(k, s));
+    L.th[j] = L.im[j] = L.w_mean[j] = L.w_m2[j] = 0.0f;
+    L.b[j] = 0.0;
+    if (!lead || L.seg[j] == -2) continue;
+    L.th[j] = a.theta[base + i];
+    if (a.iters > 0) L.im[j] = a.inv_mass[base + i];
+    if (k >= 0) L.b[j] = a.bvec[k];
   }
   __syncthreads();
 
-  float sq = 0.0f;
-  const int n_grads = move ? n_leapfrog + 1 : 1;
-  for (int step = 0; step < n_grads; ++step) {
-    row_pass(rows, eff, err, warp_sq, s.n);
+  // logp at the starting theta (and its gradient for the logp entry),
+  // unless the one-transition entry was given it
+  float lp = 0.0f;
+  Scales sc;  // warp 0: the scales at the position the effects were formed at
+  if (a.lp == nullptr) {
+    if (lead) sc = write_effects(L, effd, lane);
     __syncthreads();
-    if (want_grad) {
-      column_pass(col_start, col_rows, err, colsum, s.k);
-      __syncthreads();
-    }
+    product(c, effd, part, s, warp, lane);
+    __syncthreads();
     if (lead) {
-      sq = warp_sum(warp_sq[lane]);
-      if (want_grad) {
-        gradient(th, colsum, sq, g, s, pr, lane);
-        __syncwarp();
+      const float sq = gradient(L, part, sc, a.yty, s, a.pr, lane);
+      lp = log_density(L, sc, sq, s, a.pr);
+      if (a.grad_out != nullptr) {
+#pragma unroll
+        for (int j = 0; j < S; ++j)
+          if (L.seg[j] > -2) a.grad_out[base + lane + 32 * j] = L.g[j];
       }
-      if (move) {
+      if (lane == 0 && a.iters == 0) a.lp_out[chain] = lp;
+      if (lane == 0 && a.lp0_out != nullptr) a.lp0_out[chain] = lp;
+    }
+    if (a.iters == 0) return;
+  } else if (lead) {
+    lp = a.lp[chain];
+  }
+
+  // the dual averaging's state (warp 0, the same in every lane)
+  float log_eps = 0.0f, mu = 0.0f, h_bar = 0.0f, log_eps_bar = 0.0f, alpha_sum = 0.0f;
+  int w_n = 0;
+  const int half_iters = a.iters / 2;
+  if (adapt && lead) {
+    log_eps = logf(a.eps[chain]);
+    mu = a.log10 + log_eps;
+    log_eps_bar = log_eps;
+  }
+
+  for (int it = 0; it < a.iters; ++it) {
+    const size_t row = (size_t)it * a.chains + chain;  // this iteration's draws
+    float eps_used = 0.0f, eps = 0.0f, half = 0.0f, ke0 = 0.0f, sq = 0.0f;
+    if (lead) {
+      eps_used = adapt ? expf(log_eps) : a.eps[chain];
+#pragma unroll
+      for (int j = 0; j < S; ++j) {
+        if (L.seg[j] == -2) continue;
+        L.th0[j] = L.th[j];
+        // p ~ N(0, M), M = 1 / inv_mass
+        L.p[j] = a.z[row * s.dim + lane + 32 * j] / sqrtf(L.im[j]);
+      }
+      eps = eps_used * (0.8f + 0.4f * a.u_jit[row]);
+      half = 0.5f * eps;
+      ke0 = kinetic(L);
+      sc = write_effects(L, effd, lane);
+    }
+    for (int step = 0; step <= a.n_leapfrog; ++step) {
+      __syncthreads();
+      product(c, effd, part, s, warp, lane);
+      __syncthreads();
+      if (lead) {
+        sq = gradient(L, part, sc, a.yty, s, a.pr, lane);
         // p += eps g (half steps at both ends); then, but after the last
         // gradient, theta += eps inv_mass p and the effects at the new theta
-        const bool last = step == n_leapfrog;
+        const bool last = step == a.n_leapfrog;
         const float coef = (step == 0 || last) ? half : eps;
-        for (int i = lane; i < s.dim; i += 32) {
-          const float pi = p[i] + coef * g[i];
-          p[i] = pi;
-          if (!last) th[i] = th[i] + (eps * im[i]) * pi;
+#pragma unroll
+        for (int j = 0; j < S; ++j) {
+          if (L.seg[j] == -2) continue;
+          const float pi = L.p[j] + coef * L.g[j];
+          L.p[j] = pi;
+          if (!last) L.th[j] = L.th[j] + (eps * L.im[j]) * pi;
         }
-        __syncwarp();
-        if (!last) write_effects(th, eff, s, lane);
+        if (!last) sc = write_effects(L, effd, lane);
       }
     }
-    __syncthreads();
+    if (!lead) continue;
+
+    const float lp_new = log_density(L, sc, sq, s, a.pr);
+    const float ke_new = kinetic(L);
+    const float log_alpha = (lp_new - ke_new) - (lp - ke0);
+    const float alpha = isfinite(log_alpha) ? fminf(expf(log_alpha), 1.0f) : 0.0f;
+    const bool accept = a.u_acc[row] < alpha;
+    lp = accept ? lp_new : lp;
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      if (L.seg[j] == -2) continue;
+      if (!accept) L.th[j] = L.th0[j];
+      if (a.trace_theta != nullptr) a.trace_theta[row * s.dim + lane + 32 * j] = L.th[j];
+    }
+    if (a.trace_theta != nullptr && lane == 0) {
+      a.trace_lp[row] = lp;
+      a.trace_eps[row] = eps_used;
+      a.trace_alpha[row] = alpha;
+    }
+    alpha_sum = alpha_sum + alpha;
+    if (adapt) {
+      // ops/hmc_kernel.py: Adaptation.update. Its Python scalars are computed
+      // in double and rounded to float32, as PyTorch rounds a Python scalar
+      // it multiplies a float32 tensor by.
+      const double m = it + 1.0, w = pow(m, -a.kappa);
+      h_bar = (float)(1.0 - 1.0 / (m + a.t0)) * h_bar + (a.target - alpha) / (float)(m + a.t0);
+      log_eps = mu - (float)(sqrt(m) / a.gamma) * h_bar;
+      log_eps_bar = (float)w * log_eps + (float)(1.0 - w) * log_eps_bar;
+      if (it >= half_iters) {  // Welford over the stage's second half
+        ++w_n;
+        const float fn = (float)w_n;
+#pragma unroll
+        for (int j = 0; j < S; ++j) {
+          const float x = L.th[j];
+          const float delta = x - L.w_mean[j];
+          const float mean = L.w_mean[j] + delta / fn;
+          L.w_mean[j] = mean;
+          L.w_m2[j] = L.w_m2[j] + delta * (x - mean);
+        }
+      }
+    }
   }
 
   if (!lead) return;
-  const float lp_new = log_density(th, sq, s, pr, lane);
-  if (!move) {
-    if (lane == 0) lp_out[blockIdx.x] = lp_new;
-    if (grad_out != nullptr)
-      for (int i = lane; i < s.dim; i += 32) grad_out[base + i] = g[i];
-    return;
-  }
-  const float ke_new = kinetic(p, im, s.dim, lane);
-  const float lp0 = lp_in[blockIdx.x];
-  const float log_alpha = (lp_new - ke_new) - (lp0 - ke0);
-  const float alpha = isfinite(log_alpha) ? fminf(expf(log_alpha), 1.0f) : 0.0f;
-  const bool accept = u_acc_in[blockIdx.x] < alpha;
-  for (int i = lane; i < s.dim; i += 32) theta_out[base + i] = accept ? th[i] : th0[i];
   if (lane == 0) {
-    lp_out[blockIdx.x] = accept ? lp_new : lp0;
-    alpha_out[blockIdx.x] = alpha;
+    a.lp_out[chain] = lp;
+    a.alpha_out[chain] = alpha_sum / (float)a.iters;
+  }
+  if (adapt && lane == 0) a.eps_out[chain] = expf(log_eps_bar);
+  const float denom = (float)(w_n - 1);
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    if (L.seg[j] == -2) continue;
+    const size_t i = base + lane + 32 * j;
+    a.theta_out[i] = L.th[j];
+    if (adapt) a.var_out[i] = fminf(fmaxf(w_n > 1 ? L.w_m2[j] / denom : 1.0f, a.var_lo), a.var_hi);
   }
 }
 
-// Dynamic shared memory a block takes for n rows and k effect columns
-// (ops/hmc_kernel.py: shared_bytes).
-size_t shared_bytes(int n, int k) {
-  return (size_t)(5 * (kScalars + k) + 2 * k + kWarps + n) * sizeof(float);
+template <int S>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  const size_t smem = shared_bytes(a.s.k);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        hmc_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  hmc_kernel<S><<<a.chains, kWarps * 32, smem, stream>>>(a);
+  return cudaGetLastError();
 }
+
+template <int S>
+int blocks_per_sm(int k) {
+  const size_t smem = shared_bytes(k);
+  int blocks = 0;
+  if (cudaFuncSetAttribute(hmc_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, hmc_kernel<S>, kWarps * 32, smem) !=
+          cudaSuccess)
+    return -1;
+  return blocks;
+}
+
+// The kernel of S = ceil(dim / 32) parameters per lane, applied to f:
+// f.template operator()<S>(), or `fail` past the largest S.
+template <typename F, typename R>
+R by_slots(int dim, F f, R fail) {
+  switch ((dim + 31) / 32) {
+    case 1: return f.template operator()<1>();
+    case 2: return f.template operator()<2>();
+    case 3: return f.template operator()<3>();
+    case 4: return f.template operator()<4>();
+    case 5: return f.template operator()<5>();
+    case 6: return f.template operator()<6>();
+    default: return fail;
+  }
+}
+
+struct LaunchOp {
+  const Args* a;
+  cudaStream_t stream;
+  template <int S>
+  cudaError_t operator()() const { return launch<S>(*a, stream); }
+};
+
+struct QueryOp {
+  int k;
+  template <int S>
+  int operator()() const { return blocks_per_sm<S>(k); }
+};
 
 }  // namespace
 
@@ -338,42 +523,86 @@ extern "C" int mcgp_hmc_max_shared_bytes() {
   return bytes;
 }
 
-// How many blocks fit on one SM at once for n rows and k effect columns;
-// -1 on a CUDA error.
-extern "C" int mcgp_hmc_blocks_per_sm(int n, int k) {
-  const size_t smem = shared_bytes(n, k);
-  int blocks = 0;
-  if (cudaFuncSetAttribute(hmc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) !=
-          cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, hmc_kernel, kThreads, smem) !=
-          cudaSuccess)
-    return -1;
-  return blocks;
+// How many blocks fit on one SM at once at k effect columns; -1 on a CUDA
+// error or more columns than the library holds.
+extern "C" int mcgp_hmc_blocks_per_sm(int k) {
+  return by_slots(kScalars + k, QueryOp{k}, -1);
 }
 
-// rows (n, 4) int32: each row's three effect columns and -y as float32 bits;
-// col_start (k + 1,) and col_rows (3n,) int32: each column's rows in row
-// order; the state tensors float32 (chains, 5 + k) or (chains,). One block per
-// chain. Returns the first CUDA error of the shared-memory opt-in and the
-// launch.
-extern "C" int mcgp_hmc_run(const int* rows, const int* col_start, const int* col_rows, int n,
-                            int t, int d, int c, float prec0, float prec1, float prec2,
-                            float prec3, const float* theta, const float* lp, const float* eps,
-                            const float* inv_mass, const float* z, const float* u_jit,
-                            const float* u_acc, float* theta_out, float* lp_out,
-                            float* alpha_out, float* grad_out, int chains, int n_leapfrog,
-                            void* stream) {
-  if (n < 1 || t < 1 || d < 0 || c < 0 || chains < 1 || chains > 65535 || n_leapfrog < 0)
+// counts (k, k) and bvec (k,) float64 with k = t + d + c, yty and n the rows'
+// y^T y and count; the state tensors float32: theta, inv_mass (chains, 5 + k),
+// lp, eps (chains,); z (iters, chains, 5 + k), u_jit and u_acc (iters,
+// chains). One block of 32 * kWarps threads per chain. The modes:
+//   * iters = 0: logp at theta into lp_out and, when grad_out is not null,
+//     its gradient (chains, 5 + k) into grad_out;
+//   * iters >= 1: the chains' transitions from theta, at lp when it is not
+//     null, else at logp(theta), written to lp0_out when it is not null;
+//     with adapt a warmup stage (the step size dual-averaged from eps with
+//     the constants t0, gamma and kappa; eps_out its final exp(log_eps_bar),
+//     var_out the clamped Welford variance), without, every transition at
+//     eps; theta_out, lp_out the final state, alpha_out the mean alpha; when
+//     trace_theta is not null the trace, per iteration theta (iters, chains,
+//     5 + k), lp, the step size used and alpha (iters, chains).
+// Returns the first CUDA error of the shared-memory opt-in and the launch.
+extern "C" int mcgp_hmc_run(const double* counts, const double* bvec, double yty, int n, int t,
+                            int d, int c, float prec0, float prec1, float prec2, float prec3,
+                            int adapt, double t0, double gamma, double kappa, float target,
+                            float log10, float var_lo, float var_hi, const float* theta,
+                            const float* lp, const float* eps, const float* inv_mass,
+                            const float* z, const float* u_jit, const float* u_acc,
+                            float* theta_out, float* lp_out,
+                            float* alpha_out, float* grad_out, float* eps_out, float* var_out,
+                            float* lp0_out, float* trace_theta, float* trace_lp,
+                            float* trace_eps, float* trace_alpha, int chains, int iters,
+                            int n_leapfrog, void* stream) {
+  if (n < 0 || t < 1 || d < 0 || c < 0 || chains < 1 || chains > 65535 || iters < 0 ||
+      n_leapfrog < 0 || lp_out == nullptr)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = shared_bytes(n, t + d + c);
-  if (smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(hmc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const Prior pr{prec0, prec1, prec2, prec3};
-  hmc_kernel<<<chains, kThreads, smem, (cudaStream_t)stream>>>(
-      reinterpret_cast<const int4*>(rows), col_start, col_rows, n, t, d, c, pr, theta, lp, eps,
-      inv_mass, z, u_jit, u_acc, theta_out, lp_out, alpha_out, grad_out, n_leapfrog);
-  return (int)cudaGetLastError();
+  if (iters > 0 && (eps == nullptr || inv_mass == nullptr || z == nullptr || u_jit == nullptr ||
+                    u_acc == nullptr || theta_out == nullptr || alpha_out == nullptr ||
+                    n_leapfrog < 1))
+    return (int)cudaErrorInvalidValue;
+  if (adapt && (iters < 1 || eps_out == nullptr || var_out == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (trace_theta != nullptr && (trace_lp == nullptr || trace_eps == nullptr ||
+                                 trace_alpha == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int k = t + d + c;
+  Args a;
+  a.counts = counts;
+  a.bvec = bvec;
+  a.yty = yty;
+  a.s = Shape{n, t, d, k, kScalars + k};
+  a.pr = Prior{prec0, prec1, prec2, prec3};
+  a.adapt = adapt;
+  a.t0 = t0;
+  a.gamma = gamma;
+  a.kappa = kappa;
+  a.target = target;
+  a.log10 = log10;
+  a.var_lo = var_lo;
+  a.var_hi = var_hi;
+  a.theta = theta;
+  a.lp = lp;
+  a.eps = eps;
+  a.inv_mass = inv_mass;
+  a.z = z;
+  a.u_jit = u_jit;
+  a.u_acc = u_acc;
+  a.theta_out = theta_out;
+  a.lp_out = lp_out;
+  a.alpha_out = alpha_out;
+  a.grad_out = grad_out;
+  a.eps_out = eps_out;
+  a.var_out = var_out;
+  a.lp0_out = lp0_out;
+  a.trace_theta = trace_theta;
+  a.trace_lp = trace_lp;
+  a.trace_eps = trace_eps;
+  a.trace_alpha = trace_alpha;
+  a.chains = chains;
+  a.iters = iters;
+  a.n_leapfrog = n_leapfrog;
+  const cudaStream_t st = (cudaStream_t)stream;
+  return (int)by_slots(a.s.dim, LaunchOp{&a, st}, cudaErrorInvalidValue);
 }

@@ -32,14 +32,15 @@ from run to run. Every random number is drawn up front from a CPU
 `torch.Generator` seeded with `seed`, so the same seed gives bitwise the
 same posterior on a device, and a CPU and a CUDA fit draw the same numbers.
 
-On a CUDA device every HMC transition of every chain is one launch of a
-hand-written CUDA kernel (`ops/hmc_kernel.py`, `csrc/hmc_kernel.cu`: the
-momentum, the whole leapfrog trajectory, logp at the proposal and the
-accept, one block per chain, every sum in a fixed order), the counterpart
-of the JAX model's compiled leapfrog loop; each warmup stage's starting
-logp comes from the same kernel, and the adaptation between transitions
-stays eager. On the CPU the kernel's wrapper runs the eager transition,
-the plain version the kernel is held to (`sample_posterior(...,
+On a CUDA device each stage of the schedule (two warmup stages, then
+sampling) is one launch of a hand-written CUDA kernel (`ops/hmc_kernel.py`,
+`csrc/hmc_kernel.cu`: every transition of every chain with its momentum,
+leapfrog trajectory, logp at the proposal and accept, and a warmup stage's
+dual averaging and Welford variance, one block per chain, every sum in a
+fixed order), the counterpart of the JAX model's compiled warmup and
+sampling loops: three launches a fit. On the CPU the kernel's wrapper runs
+the plain version the kernel is held to: the eager stage
+(`hmc_kernel.stage_plain`) with the eager transition (`sample_posterior(...,
 plain=True)` runs it without the wrapper on any device).
 `sample_posterior_graphed` replays one captured CUDA graph of the eager
 transition per iteration instead (`GraphedTransition`, bitwise the eager
@@ -49,7 +50,6 @@ fit): the yardstick the kernel is timed against.
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import numpy as np
 import pandas as pd
@@ -70,12 +70,6 @@ TEAM_SIGMA_SCALE = 0.5
 DRIVER_SIGMA_SCALE = 0.3
 CIRCUIT_SIGMA_SCALE = 0.2
 OBS_SIGMA_SCALE = 0.1
-
-# Dual-averaging constants (Hoffman & Gelman 2014, table 1).
-_DA_GAMMA = 0.05
-_DA_T0 = 10.0
-_DA_KAPPA = 0.75
-_TARGET_ACCEPT = 0.8
 
 
 # ---------------------------------------------------------------------------
@@ -360,67 +354,34 @@ class GraphedTransition:
         torch.cuda.empty_cache()
 
 
-def _warmup_stage(theta, logp_fn, step, inv_mass, eps0, draws):
-    """One warmup stage over len(draws[0]) iterations, each a
-    `step(theta, lp, eps, inv_mass, z, u_jit, u_acc) -> (theta, lp, alpha)`:
-    each chain's step size dual-averaged at a fixed `inv_mass`, and a
-    Welford variance of its draws over the stage's second half (the next
-    stage's and the sampler's diagonal mass). Returns (theta, lp, eps, var,
-    mean alpha)."""
-    z, u_jit, u_acc = draws
-    n_iters = z.shape[0]
-    half = n_iters // 2
-    lp = logp_fn(theta)
-    mu = math.log(10.0) + torch.log(eps0)
-    h_bar = torch.zeros_like(eps0)
-    log_eps = torch.log(eps0)
-    log_eps_bar = log_eps
-    w_n = 0
-    w_mean = torch.zeros_like(theta)
-    w_m2 = torch.zeros_like(theta)
-    alpha_sum = torch.zeros_like(eps0)
-    for it in range(n_iters):
-        theta, lp, alpha = step(theta, lp, torch.exp(log_eps), inv_mass, z[it], u_jit[it], u_acc[it])
-        alpha_sum = alpha_sum + alpha
-        m = it + 1.0
-        h_bar = (1.0 - 1.0 / (m + _DA_T0)) * h_bar + (_TARGET_ACCEPT - alpha) / (m + _DA_T0)
-        log_eps = mu - math.sqrt(m) / _DA_GAMMA * h_bar
-        w = m ** (-_DA_KAPPA)
-        log_eps_bar = w * log_eps + (1.0 - w) * log_eps_bar
-        if it >= half:  # Welford over the stage's second half
-            w_n += 1
-            delta = theta - w_mean
-            w_mean = w_mean + delta / w_n
-            w_m2 = w_m2 + delta * (theta - w_mean)
-    var = w_m2 / (w_n - 1) if w_n > 1 else torch.ones_like(theta)
-    var = var.clamp(1e-4, 1e4)
-    return theta, lp, torch.exp(log_eps_bar), var, alpha_sum / n_iters
-
-
-def _schedule(theta0, logp_fn, step, n_warmup: int, n_samples: int, draws):
-    """The full schedule of every chain, each transition a `step` (see
-    `_warmup_stage`): two warmup stages (identity mass, then the first
-    stage's Welford mass), then sampling at a fixed step size and mass.
+def _staged(theta0, stage, n_warmup: int, draws):
+    """The full schedule of every chain, each stage a `stage(theta, eps0,
+    inv_mass, draws, adapt) -> hmc_kernel.Stage`: two warmup stages
+    (identity mass, then the first stage's Welford mass), then sampling at a
+    fixed step size and mass over the draws that remain after warmup.
     Returns (samples (samples, chains, dim), accept rate (chains,))."""
     w1 = max(n_warmup // 2, 1)
     w2 = max(n_warmup - w1, 1)
     stage1 = tuple(a[:w1] for a in draws)
     stage2 = tuple(a[w1 : w1 + w2] for a in draws)
-    z, u_jit, u_acc = (a[w1 + w2 :] for a in draws)
+    sampling = tuple(a[w1 + w2 :] for a in draws)
     chains = theta0.shape[0]
     eps0 = torch.full((chains,), 0.1, dtype=torch.float32, device=theta0.device)
-    theta, _, eps, var, _ = _warmup_stage(
-        theta0, logp_fn, step, torch.ones_like(theta0), eps0, stage1
-    )
-    inv_mass = var  # the optimal diagonal M^-1 is about the posterior variance
-    theta, lp, eps, _, _ = _warmup_stage(theta, logp_fn, step, inv_mass, eps, stage2)
-    samples = torch.empty((n_samples, *theta.shape), dtype=theta.dtype, device=theta.device)
-    alpha_sum = torch.zeros_like(eps)
-    for i in range(n_samples):
-        theta, lp, alpha = step(theta, lp, eps, inv_mass, z[i], u_jit[i], u_acc[i])
-        samples[i] = theta
-        alpha_sum = alpha_sum + alpha
-    return samples, alpha_sum / n_samples
+    first = stage(theta0, eps0, torch.ones_like(theta0), stage1, True)
+    inv_mass = first.var  # the optimal diagonal M^-1 is about the posterior variance
+    second = stage(first.theta, first.eps, inv_mass, stage2, True)
+    last = stage(second.theta, second.eps, inv_mass, sampling, False)
+    return last.trace_theta, last.alpha_mean
+
+
+def _schedule(theta0, logp_fn, step, n_warmup: int, draws):
+    """`_staged` with every stage the eager `hmc_kernel.stage_plain`, each
+    transition a `step(theta, lp, eps, inv_mass, z, u_jit, u_acc) -> (theta,
+    lp, alpha)` and each stage's starting logp `logp_fn`."""
+    def stage(theta, eps0, inv_mass, stage_draws, adapt):
+        return hmc_kernel.stage_plain(theta, logp_fn, step, eps0, inv_mass, stage_draws, adapt)
+
+    return _staged(theta0, stage, n_warmup, draws)
 
 
 def kernel_design(design: QualiDesign, device, plain=None) -> hmc_kernel.KernelDesign:
@@ -444,37 +405,31 @@ def _eager_step(logp_fn, grad_fn, n_leapfrog: int):
     return step
 
 
-def _run_chains(theta0, logp_fn, grad_fn, n_warmup: int, n_samples: int, n_leapfrog: int, draws,
+def _run_chains(theta0, logp_fn, grad_fn, n_warmup: int, n_leapfrog: int, draws,
                 kernel: hmc_kernel.KernelDesign | None = None):
-    """`_schedule` with `n_leapfrog` steps per transition. With `kernel` (the
-    design as the HMC kernel reads it, on theta0's device) each transition
-    is `hmc_kernel.hmc_transition` and each stage's starting logp
-    `hmc_kernel.hmc_logp`: one launch of the kernel each on a CUDA device,
-    their plain versions on the CPU. Without it each transition is
-    `_hmc_transition` run eagerly."""
+    """The schedule with `n_leapfrog` steps per transition. With `kernel`
+    (the design as the HMC kernel reads it, on theta0's device) each stage is
+    `hmc_kernel.hmc_stage`: one launch of the kernel on a CUDA device, its
+    plain version on the CPU. Without it each transition is `_hmc_transition`
+    run eagerly."""
     if kernel is None:
         step = _eager_step(logp_fn, grad_fn, n_leapfrog)
-        return _schedule(theta0, logp_fn, step, n_warmup, n_samples, draws)
+        return _schedule(theta0, logp_fn, step, n_warmup, draws)
 
-    def launch(theta, lp, eps, inv_mass, z, u_jit, u_acc):
-        return hmc_kernel.hmc_transition(kernel, theta, lp, eps, inv_mass, z, u_jit, u_acc,
-                                         n_leapfrog)
+    def stage(theta, eps0, inv_mass, stage_draws, adapt):
+        return hmc_kernel.hmc_stage(kernel, theta, eps0, inv_mass, *stage_draws, n_leapfrog, adapt)
 
-    def logp(theta):
-        return hmc_kernel.hmc_logp(kernel, theta)
-
-    return _schedule(theta0, logp, launch, n_warmup, n_samples, draws)
+    return _staged(theta0, stage, n_warmup, draws)
 
 
-def _run_graphed(theta0, logp_fn, grad_fn, n_warmup: int, n_samples: int, n_leapfrog: int,
-                 draws):
+def _run_graphed(theta0, logp_fn, grad_fn, n_warmup: int, n_leapfrog: int, draws):
     """`_run_chains` run eagerly, but on a CUDA device every transition a
     replay of one `GraphedTransition`, released before this returns."""
     if not theta0.is_cuda:
-        return _run_chains(theta0, logp_fn, grad_fn, n_warmup, n_samples, n_leapfrog, draws)
+        return _run_chains(theta0, logp_fn, grad_fn, n_warmup, n_leapfrog, draws)
     graphed = GraphedTransition(logp_fn, grad_fn, n_leapfrog, *theta0.shape, theta0.device)
     try:
-        return _schedule(theta0, logp_fn, graphed, n_warmup, n_samples, draws)
+        return _schedule(theta0, logp_fn, graphed, n_warmup, draws)
     finally:
         graphed.close()
 
@@ -488,7 +443,7 @@ def chain_draws(seed: int, num_chains: int, dim: int, n_iters: int):
     init = torch.randn(num_chains, dim, generator=gen)
     z = torch.randn(n_iters, num_chains, dim, generator=gen)
     u = torch.rand(n_iters, 2, num_chains, generator=gen)
-    return init, (z, u[:, 0], u[:, 1])
+    return init, (z, u[:, 0].contiguous(), u[:, 1].contiguous())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -524,13 +479,12 @@ def sample_posterior(
 ) -> QualiPosterior:
     """Fit the hierarchical model on `device` (a CUDA device raises where
     there is none). The same seed on the same device gives bitwise the same
-    `raw`. Every transition goes through the HMC kernel's wrapper
-    (`hmc_kernel.hmc_transition`) and each warmup stage's starting logp
-    through its logp entry: on a CUDA device one launch of the kernel each
-    (counted in their `launches`; a refusal or a failed launch raises
-    `hmc_kernel.HMCKernelError`), on the CPU their plain versions. `plain`
-    runs the transitions eagerly without the wrapper on any device, the
-    plain version the kernel is held to."""
+    `raw`. Every stage goes through the HMC kernel's wrapper
+    (`hmc_kernel.hmc_stage`): on a CUDA device one launch of the kernel each,
+    three a fit (counted in `hmc_stage.launches`; a refusal or a failed
+    launch raises `hmc_kernel.HMCKernelError`), on the CPU its plain version.
+    `plain` runs the transitions eagerly without the wrapper on any device,
+    the plain version the kernel is held to."""
     def run(theta0, logp_fn, grad_fn, *schedule):
         kernel = None if plain else kernel_design(design, theta0.device, (logp_fn, grad_fn))
         return _run_chains(theta0, logp_fn, grad_fn, *schedule, kernel=kernel)
@@ -558,8 +512,9 @@ def sample_posterior_graphed(
 def _fit(design: QualiDesign, num_chains: int, num_warmup: int, num_samples: int,
          num_leapfrog: int, seed: int, device, run) -> QualiPosterior:
     """`sample_posterior` with its schedule run by `run(theta0, logp_fn,
-    grad_fn, n_warmup, n_samples, n_leapfrog, draws) -> (samples, accept)`
-    (`_run_chains`, `_run_graphed`)."""
+    grad_fn, n_warmup, n_leapfrog, draws) -> (samples, accept)`
+    (`_run_chains`, `_run_graphed`); the sampling stage takes the draws that
+    remain after warmup, `num_samples` of them."""
     dev = torch.device(device)
     logp_fn, grad_fn, sizes = make_log_posterior(design, dev)
     dim = _param_dim(design)
@@ -572,8 +527,7 @@ def _fit(design: QualiDesign, num_chains: int, num_warmup: int, num_samples: int
     with torch.inference_mode():  # no autograd bookkeeping on ~10^5 small ops
         theta0 = (torch.from_numpy(offsets) + 0.1 * init).to(dev)
         draws = tuple(a.to(dev) for a in draws)
-        samples, accept = run(theta0, logp_fn, grad_fn, int(num_warmup), int(num_samples),
-                              int(num_leapfrog), draws)
+        samples, accept = run(theta0, logp_fn, grad_fn, int(num_warmup), int(num_leapfrog), draws)
         raw = samples.transpose(0, 1).cpu().numpy()  # (chains, samples, dim)
         accept = accept.cpu().numpy()
     con = constrain(torch.from_numpy(raw.reshape(num_chains * num_samples, dim)), sizes)

@@ -1,26 +1,42 @@
-"""One HMC transition of every chain of the Bayesian qualifying model in one
-launch (`csrc/hmc_kernel.cu`), the counterpart of the JAX fit's compiled
-leapfrog loop (`monte_carlo_gp_tpu/models/bayesian.py:247-284`, XLA, no
+"""The Bayesian qualifying model's HMC sampler on the card (`csrc/hmc_kernel.cu`),
+the counterpart of the JAX fit's compiled warmup and sampling loops
+(`monte_carlo_gp_tpu/models/bayesian.py:247-360`: `_leapfrog`,
+`_hmc_transition`, `_warmup_scan`, `_sample_chain`, which XLA computes; no
 Pallas kernel).
 
-`hmc_transition` takes a transition's inputs (theta, lp, eps, inv_mass, z,
-u_jit, u_acc) and returns (theta', lp', alpha). For CPU tensors it runs
-`hmc_transition_plain`, the eager transition of `models/bayesian.py`'s fit,
-with the plain log posterior (`make_log_posterior`); for CUDA tensors it
-launches the kernel, one block per chain, or raises. `hmc_logp` is the
-kernel's logp-only entry (each warmup stage's starting logp on the card).
-Each counts its launches (`hmc_transition.launches`, `hmc_logp.launches`).
+`hmc_stage` runs every transition of one stage of a fit for every chain: a
+warmup stage (dual-averaged step sizes at a fixed mass, a Welford variance
+over its second half) or the sampling stage (a fixed step size and mass). It
+returns a `Stage`: the chains' final state, the stage's adapted step size and
+variance, and its per-iteration trace (theta after each transition, lp, the
+step size used and alpha). `hmc_transition` is one transition from given
+inputs (theta, lp, eps, inv_mass, z, u_jit, u_acc) -> (theta', lp', alpha);
+`hmc_logp` is logp (and the gradient) at theta. For CPU tensors each runs its
+plain version: `stage_plain` with `hmc_transition_plain` steps (the eager
+schedule of `models/bayesian.py`'s fit) and `make_log_posterior`'s functions.
+For CUDA tensors each launches the kernel, one block per chain, or raises.
+Each counts its launches (`hmc_stage.launches`, `hmc_transition.launches`,
+`hmc_logp.launches`).
 
-The kernel reads the design through `KernelDesign`: each row's three effect
-columns with -y (16 bytes a row) and, per effect column, its rows in row
-order (a CSR layout built once per fit on the host), so every column is
-summed in a fixed order with no float atomics and a seed gives bitwise the
-same fit run to run. The rows' residuals live in shared memory, which bounds
-the archive a launch takes (`max_rows`); a larger one raises, naming the
-capacity, and is never cut. Every refusal of the wrapper, and a failed
-launch, raises `HMCKernelError`. `csr_log_posterior` computes logp and the
-gradient in plain PyTorch through the same layout and in the kernel's
-summation order; the tests hold it to `make_log_posterior` on the CPU.
+The model is linear-Gaussian in its effects: every training row has exactly
+one team, one driver and one circuit column, so with A the (N, K) one-hot
+design and err = A·eff - y, the effects' gradient A^T·err = C·eff - b and
+sum(err^2) = eff·(C·eff - b) - b·eff + y^T·y, with C = A^T·A (K x K integer
+co-occurrence counts), b = A^T·y. `KernelDesign` carries (C, b, y^T·y, n),
+built once per fit on the host in float64, and the kernel never reads a row:
+each gradient is a K x K product in float64 (why float64: near the
+posterior C·eff and b agree to within the column sums, ~10 against ~10^3,
+so float32 rounding would swamp the gradient). C lives in the block's shared
+memory and the chain's state in one warp's registers, which bound the
+effect columns a launch takes (`max_cols`, 167 on an H100); a design over it
+raises `HMCKernelError` naming the capacity and is never cut. The number of
+rows bounds nothing. Every refusal of the wrapper, and a failed launch,
+raises `HMCKernelError`. `stats_log_posterior` computes logp and the
+gradient in plain PyTorch from the same statistics in the kernel's order of
+operations; the tests hold it to `make_log_posterior` on the CPU, and to the
+kernel on the card. What bounds the kernel is the latency of its 49
+dependent K x K products a transition, not a pass over data; the source
+note in `csrc/hmc_kernel.cu` says what its design does about it.
 """
 
 from __future__ import annotations
@@ -28,29 +44,45 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import math
 import re
 from typing import Callable
 
 import numpy as np
 import torch
 
-# threads per block (kThreads in csrc/hmc_kernel.cu): one block per chain
-THREADS = 1024
+# warps per block, one block per chain (csrc/hmc_kernel.cu: kWarps): warp w
+# sums range w of the product
+WARPS = 4
+# the K x K product's fixed order: each effect's sum in RANGES contiguous
+# ranges of the columns, each summed in column order, then the ranges in order
+RANGES = 4
+# the parameters a lane of warp 0 keeps in registers: lane L holds
+# parameters L, L + 32, ..., so theta takes at most 32 x SLOTS entries
+SLOTS = 6
 _N_SCALAR = 5  # team_mu and the four log-scales lead theta
 _SOURCES = ["hmc_kernel.cu"]
 _lib = None
 
+# Dual-averaging constants (Hoffman & Gelman 2014, table 1).
+DA_GAMMA = 0.05
+DA_T0 = 10.0
+DA_KAPPA = 0.75
+TARGET_ACCEPT = 0.8
+# the Welford variance's clamp, the next stage's and the sampler's mass
+VAR_MIN, VAR_MAX = 1e-4, 1e4
+
 
 class HMCKernelError(RuntimeError):
     """The HMC kernel's wrapper refused a call (its inputs, or a design over
-    the kernel's row capacity), or the launch failed. Not a ValueError: the
-    predictor reads a ValueError from a fit as "the archive cannot support a
-    fit" and takes the Elo grid instead, and a refused kernel must fail the
-    weekend."""
+    the kernel's column capacity), or the launch failed. Not a ValueError:
+    the predictor reads a ValueError from a fit as "the archive cannot
+    support a fit" and takes the Elo grid instead, and a refused kernel must
+    fail the weekend."""
 
 
 # ---------------------------------------------------------------------------
-# The plain version: the eager transition
+# The plain version: the eager transition and stage
 # ---------------------------------------------------------------------------
 
 
@@ -90,8 +122,114 @@ def hmc_transition_plain(theta, lp, eps, inv_mass, logp_fn, grad_fn, n_leapfrog,
     return theta, lp, alpha
 
 
+class Adaptation:
+    """One warmup stage's adaptation of every chain, float32 on theta's
+    device: the step size dual-averaged towards TARGET_ACCEPT, and a Welford
+    variance of the draws over the stage's second half. The kernel computes
+    the same per chain inside its stage launch, these Python scalars in
+    double rounded to float32."""
+
+    def __init__(self, theta, eps0, n_iters: int):
+        self.half = n_iters // 2
+        self.mu = math.log(10.0) + torch.log(eps0)
+        self.h_bar = torch.zeros_like(eps0)
+        self.log_eps = torch.log(eps0)
+        self.log_eps_bar = self.log_eps
+        self.w_n = 0
+        self.w_mean = torch.zeros_like(theta)
+        self.w_m2 = torch.zeros_like(theta)
+
+    def eps(self) -> torch.Tensor:
+        """The step size of the next transition."""
+        return torch.exp(self.log_eps)
+
+    def update(self, it: int, theta, alpha) -> None:
+        """After transition `it` (0-based) reached `theta` with `alpha`."""
+        m = it + 1.0
+        self.h_bar = (1.0 - 1.0 / (m + DA_T0)) * self.h_bar + (TARGET_ACCEPT - alpha) / (m + DA_T0)
+        self.log_eps = self.mu - math.sqrt(m) / DA_GAMMA * self.h_bar
+        w = m ** (-DA_KAPPA)
+        self.log_eps_bar = w * self.log_eps + (1.0 - w) * self.log_eps_bar
+        if it >= self.half:  # Welford over the stage's second half
+            self.w_n += 1
+            delta = theta - self.w_mean
+            self.w_mean = self.w_mean + delta / self.w_n
+            self.w_m2 = self.w_m2 + delta * (theta - self.w_mean)
+
+    def result(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(the adapted step size (chains,), the clamped variance (chains,
+        dim))."""
+        var = self.w_m2 / (self.w_n - 1) if self.w_n > 1 else torch.ones_like(self.w_m2)
+        return torch.exp(self.log_eps_bar), var.clamp(VAR_MIN, VAR_MAX)
+
+
+@dataclasses.dataclass(frozen=True)
+class Stage:
+    """What one stage returns: every chain's final theta (chains, dim) and
+    lp (chains,); `eps`, the adapted step size (a warmup stage) or the one it
+    ran at (sampling); `var`, the Welford variance (chains, dim) of a warmup
+    stage, else None; `alpha_mean` (chains,); `lp0`, logp at the stage's
+    start; and the trace, per iteration: theta after the transition
+    (iters, chains, dim), lp, the step size used and alpha (iters, chains)."""
+
+    theta: torch.Tensor
+    lp: torch.Tensor
+    eps: torch.Tensor
+    var: torch.Tensor | None
+    alpha_mean: torch.Tensor
+    lp0: torch.Tensor
+    trace_theta: torch.Tensor
+    trace_lp: torch.Tensor
+    trace_eps: torch.Tensor
+    trace_alpha: torch.Tensor
+
+
+def stage_plain(theta, logp_fn, step, eps0, inv_mass, draws, adapt: bool) -> Stage:
+    """One stage over len(draws[0]) iterations, each a `step(theta, lp, eps,
+    inv_mass, z, u_jit, u_acc) -> (theta, lp, alpha)`, from logp at theta:
+    with `adapt`, each chain's step size dual-averaged from `eps0` at a fixed
+    `inv_mass` and a Welford variance of its draws over the stage's second
+    half (the next stage's and the sampler's diagonal mass); without, every
+    transition at `eps0`."""
+    z, u_jit, u_acc = draws
+    n_iters = z.shape[0]
+    lp = lp0 = logp_fn(theta)
+    adaptation = Adaptation(theta, eps0, n_iters) if adapt else None
+    trace_theta = torch.empty((n_iters, *theta.shape), dtype=theta.dtype, device=theta.device)
+    trace_lp, trace_eps, trace_alpha = (torch.empty((n_iters, *eps0.shape), dtype=eps0.dtype,
+                                                    device=eps0.device) for _ in range(3))
+    alpha_sum = torch.zeros_like(eps0)
+    for it in range(n_iters):
+        eps = adaptation.eps() if adapt else eps0
+        theta, lp, alpha = step(theta, lp, eps, inv_mass, z[it], u_jit[it], u_acc[it])
+        trace_theta[it], trace_lp[it], trace_eps[it], trace_alpha[it] = theta, lp, eps, alpha
+        alpha_sum = alpha_sum + alpha
+        if adapt:
+            adaptation.update(it, theta, alpha)
+    eps, var = adaptation.result() if adapt else (eps0, None)
+    return Stage(theta, lp, eps, var, alpha_sum / n_iters, lp0, trace_theta, trace_lp, trace_eps,
+                 trace_alpha)
+
+
+def replay_adaptation(eps0, trace_theta, trace_alpha) -> dict:
+    """A warmup stage's adaptation replayed from its trace: `Adaptation`
+    from `eps0` fed each iteration's theta and alpha. Returns {"eps": the
+    step size of each iteration (iters, chains), "final_eps", "var",
+    "alpha_mean"}, what the stage's trace and result hold."""
+    n_iters = trace_alpha.shape[0]
+    adaptation = Adaptation(trace_theta[0], eps0, n_iters)
+    eps = torch.empty_like(trace_alpha)
+    alpha_sum = torch.zeros_like(eps0)
+    for it in range(n_iters):
+        eps[it] = adaptation.eps()
+        alpha_sum = alpha_sum + trace_alpha[it]
+        adaptation.update(it, trace_theta[it], trace_alpha[it])
+    final_eps, var = adaptation.result()
+    return {"eps": eps, "final_eps": final_eps, "var": var, "alpha_mean": alpha_sum / n_iters}
+
+
 # ---------------------------------------------------------------------------
-# The design as the kernel reads it
+# The design as the kernel reads it: its sufficient statistics
 # ---------------------------------------------------------------------------
 
 
@@ -100,23 +238,20 @@ class KernelDesign:
     """The training rows of one fit as the kernel reads them, on one device,
     with the plain version's log posterior on the same device.
 
-    `rows` (N, 4) int32 holds each row's team, driver and circuit effect
-    columns (t, T + d, T + D + c) and -y as float32 bits; `col_start` (K + 1,)
-    and `col_rows` (3N,) int32 list each effect column's rows in row order.
-    `prior_prec` are the float32 values 1 / scale² of the four prior scales;
-    `logp_fn` and `grad_fn` are `make_log_posterior`'s."""
+    `counts` (K, K) float64 is C = A^T·A of the one-hot design A, whose
+    columns are the T team, D driver and C circuit effects; `b` (K,) float64
+    is A^T·y; `yty` is y^T·y and `n_rows` the number of rows. `prior_prec`
+    are the float32 values 1 / scale² of the four prior scales; `logp_fn`
+    and `grad_fn` are `make_log_posterior`'s."""
 
-    rows: torch.Tensor
-    col_start: torch.Tensor
-    col_rows: torch.Tensor
+    counts: torch.Tensor
+    b: torch.Tensor
+    yty: float
+    n_rows: int
     sizes: tuple[int, int, int]
     prior_prec: tuple[float, float, float, float]
     logp_fn: Callable
     grad_fn: Callable
-
-    @property
-    def n_rows(self) -> int:
-        return int(self.rows.shape[0])
 
     @property
     def n_cols(self) -> int:
@@ -128,25 +263,33 @@ class KernelDesign:
 
     @property
     def device(self) -> torch.device:
-        return self.rows.device
+        return self.counts.device
 
 
-def column_layout(team_idx, driver_idx, circuit_idx,
-                  sizes) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """(row_cols (N, 3), col_start (K + 1,), col_rows (3N,)) int32: each row's
-    three effect columns, and each column's rows in row order (CSR)."""
+def one_hot_design(team_idx, driver_idx, circuit_idx, sizes) -> np.ndarray:
+    """A, the (N, K) float64 one-hot design: row i has a 1 in its team's
+    column t_i, its driver's T + d_i and its circuit's T + D + c_i."""
     t, d, c = sizes
     parts = [np.asarray(a, np.int64) for a in (team_idx, driver_idx, circuit_idx)]
     for name, idx, size in zip(("team", "driver", "circuit"), parts, sizes):
         if idx.size and (idx.min() < 0 or idx.max() >= size):
             raise HMCKernelError(f"{name} indices must lie in [0, {size})")
-    row_cols = np.stack([parts[0], t + parts[1], t + d + parts[2]], axis=1)
-    n, k = row_cols.shape[0], t + d + c
-    flat = row_cols.reshape(-1)  # row-major: a column meets its rows in row order
-    order = np.argsort(flat, kind="stable")
-    col_rows = np.repeat(np.arange(n), 3)[order]
-    col_start = np.concatenate([[0], np.cumsum(np.bincount(flat, minlength=k))])
-    return row_cols.astype(np.int32), col_start.astype(np.int32), col_rows.astype(np.int32)
+    n = parts[0].shape[0]
+    a = np.zeros((n, t + d + c), np.float64)
+    rows = np.arange(n)
+    for offset, idx in zip((0, t, t + d), parts):
+        a[rows, offset + idx] = 1.0
+    return a
+
+
+def design_statistics(y, team_idx, driver_idx, circuit_idx,
+                      sizes) -> tuple[np.ndarray, np.ndarray, float, int]:
+    """(C = A^T·A (K, K), b = A^T·y (K,), y^T·y, n) in float64 for the
+    float32 targets y. Every entry of C is an integer count (exact), so each
+    product of a count and a float32 effect is exact in float64."""
+    a = one_hot_design(team_idx, driver_idx, circuit_idx, sizes)
+    y64 = np.asarray(y, np.float32).astype(np.float64)
+    return a.T @ a, a.T @ y64, float(y64 @ y64), int(y64.shape[0])
 
 
 def kernel_design(y, team_idx, driver_idx, circuit_idx, sizes, prior_scales, logp_fn, grad_fn,
@@ -154,14 +297,13 @@ def kernel_design(y, team_idx, driver_idx, circuit_idx, sizes, prior_scales, log
     """The `KernelDesign` of the rows (y, team_idx, driver_idx, circuit_idx)
     with (T, D, C) = `sizes` on `device`; `logp_fn` and `grad_fn` are the plain
     log posterior of the same rows on the same device."""
-    row_cols, col_start, col_rows = column_layout(team_idx, driver_idx, circuit_idx, sizes)
-    neg_y = (-np.asarray(y, np.float32)).view(np.int32)
-    rows = np.concatenate([row_cols, neg_y[:, None]], axis=1)
+    counts, b, yty, n = design_statistics(y, team_idx, driver_idx, circuit_idx, sizes)
     dev = torch.device(device)
     return KernelDesign(
-        rows=torch.from_numpy(np.ascontiguousarray(rows)).to(dev),
-        col_start=torch.from_numpy(col_start).to(dev),
-        col_rows=torch.from_numpy(col_rows).to(dev),
+        counts=torch.from_numpy(np.ascontiguousarray(counts)).to(dev),
+        b=torch.from_numpy(b).to(dev),
+        yty=yty,
+        n_rows=n,
         sizes=tuple(int(s) for s in sizes),
         prior_prec=tuple(float(np.float32(s**-2)) for s in prior_scales),
         logp_fn=logp_fn,
@@ -200,17 +342,24 @@ def _lane_sum(v: torch.Tensor) -> torch.Tensor:
     return _xor_tree(_strided_sum(v, 32))
 
 
-def csr_log_posterior(kd: KernelDesign, theta: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def _effect_sum(v: torch.Tensor) -> torch.Tensor:
+    """The kernel's sum over the effects (last axis): effect k is parameter
+    5 + k, which lane (5 + k) % 32 adds in order of k, then the butterfly."""
+    return _lane_sum(torch.nn.functional.pad(v, (_N_SCALAR, 0)))
+
+
+def stats_log_posterior(kd: KernelDesign, theta: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(logp (chains,), gradient (chains, dim)) of `theta` (chains, dim)
-    computed through `kd`'s row and column layout in the kernel's order of
-    operations and summation: the rows' sum of err² thread-strided over
-    THREADS threads, then a butterfly per warp and one over the warps; each
-    column's residuals lane-strided in its CSR order, then a butterfly; the
-    parameter sums lane-strided over the effect columns."""
-    t, d, _ = kd.sizes
+    computed from kd's statistics in the kernel's order of operations: the
+    effects in float32; colsum = C·eff - b in float64, each effect's sum over
+    RANGES contiguous column ranges, each in column order, then the ranges in
+    order; sum(err^2) = sum_k eff_k·(colsum_k - b_k) + y^T·y in float64, each
+    sum over the effects taken as the kernel's lanes take it (effect k in
+    lane (5 + k) % 32, in order), then a butterfly; then, from colsum and
+    sum(err^2) rounded to float32, the gradient and logp in float32 as the
+    kernel takes them."""
     k = kd.n_cols
-    rows = kd.rows.to(theta.device).long()
-    neg_y = kd.rows[:, 3].to(theta.device).contiguous().view(torch.float32)
+    counts, b = kd.counts.to(theta.device), kd.b.to(theta.device)
     team_mu, log_sig, raw = theta[:, 0], theta[:, 1:_N_SCALAR], theta[:, _N_SCALAR:]
     sig = torch.exp(log_sig)
     inv_var = torch.exp(-2.0 * log_sig[:, 3])
@@ -219,22 +368,26 @@ def csr_log_posterior(kd: KernelDesign, theta: torch.Tensor) -> tuple[torch.Tens
     scale = sig[:, seg]
     mask = (seg == 0).to(theta.dtype)
     eff = team_mu[:, None] * mask + raw * scale
-    err = eff[:, rows[:, 0]] + eff[:, rows[:, 1]]
-    err = err + eff[:, rows[:, 2]]
-    err = err + neg_y
-    per_thread = _strided_sum(err * err, THREADS)  # (chains, THREADS)
-    # each warp's butterfly, then one over the warp partials (lane w: warp w)
-    sq = _xor_tree(_xor_tree(per_thread.reshape(-1, THREADS // 32, 32)))
-    col_start = kd.col_start.tolist()
-    col_rows = kd.col_rows.to(theta.device).long()
-    colsum = torch.stack([_lane_sum(err[:, col_rows[col_start[j]:col_start[j + 1]]])
-                          for j in range(k)], dim=1)
+    effd = eff.double()
+    width = -(-k // RANGES)
+    parts = []
+    for q in range(RANGES):
+        acc = torch.zeros_like(effd)
+        for j in range(q * width, min((q + 1) * width, k)):
+            acc = acc + counts[:, j] * effd[:, j:j + 1]  # C is symmetric: row j
+        parts.append(acc)
+    colsum = parts[0] + parts[1]
+    for part in parts[2:]:
+        colsum = colsum + part
+    colsum = colsum - b
+    sq = (_effect_sum(effd * (colsum - b)) + kd.yty).float()
+    colsum = colsum.float()
 
     g_eff = colsum * -inv_var[:, None]
     zero = torch.zeros_like(g_eff)
-    team = _lane_sum(torch.where(seg == 0, g_eff, zero))
+    team = _effect_sum(torch.where(seg == 0, g_eff, zero))
     gr = g_eff * raw
-    seg_sums = [_lane_sum(torch.where(seg == j, gr, zero)) for j in range(3)]
+    seg_sums = [_effect_sum(torch.where(seg == j, gr, zero)) for j in range(3)]
     g_raw = -raw + scale * g_eff
     g_obs = sq * inv_var - float(kd.n_rows)
     prec = kd.prior_prec
@@ -245,7 +398,7 @@ def csr_log_posterior(kd: KernelDesign, theta: torch.Tensor) -> tuple[torch.Tens
         g_sig.append(v + g_obs * (1.0 if j == 3 else 0.0))
     grad = torch.cat([(team - team_mu)[:, None], torch.stack(g_sig, 1), g_raw], dim=1)
 
-    raw2 = _lane_sum(raw * raw)
+    raw2 = _effect_sum(raw * raw)
     prior = (-0.5 * (sig[:, 0] * sig[:, 0])) * prec[0] + log_sig[:, 0]
     for j in (1, 2, 3):
         prior = prior + ((-0.5 * (sig[:, j] * sig[:, j])) * prec[j] + log_sig[:, j])
@@ -282,21 +435,25 @@ def build():
 def load_library(path) -> ctypes.CDLL:
     """A built HMC-kernel library with its C entry points' signatures set."""
     lib = ctypes.CDLL(str(path))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.mcgp_hmc_run.argtypes = [p, p, p, i, i, i, i, f, f, f, f, p, p, p, p, p, p, p, p, p, p, p,
-                                 i, i, p]
+    p, i, f, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
+    lib.mcgp_hmc_run.argtypes = [p, p, d, i, i, i, i, f, f, f, f, i, d, d, d, f, f, f, f,
+                                 *[p] * 7, *[p] * 11, i, i, i, p]
     lib.mcgp_hmc_run.restype = i
     lib.mcgp_hmc_max_shared_bytes.argtypes = []
     lib.mcgp_hmc_max_shared_bytes.restype = i
-    lib.mcgp_hmc_blocks_per_sm.argtypes = [i, i]
+    lib.mcgp_hmc_blocks_per_sm.argtypes = [i]
     lib.mcgp_hmc_blocks_per_sm.restype = i
     return lib
 
 
-def shared_bytes(n_rows: int, n_cols: int) -> int:
-    """Dynamic shared memory of one block (one chain): the state, the effects
-    and every row's residual, float32 (csrc/hmc_kernel.cu: shared_bytes)."""
-    return 4 * (5 * (_N_SCALAR + n_cols) + 2 * n_cols + THREADS // 32 + n_rows)
+def shared_bytes(n_cols: int) -> int:
+    """Dynamic shared memory of one block (one chain) at `n_cols` effect
+    columns (csrc/hmc_kernel.cu: shared_bytes), float64: C padded with zero
+    rows to kp = RANGES * ceil(K / RANGES), the effects (kp) and the RANGES
+    range sums per effect. The chain's state lives in registers."""
+    k = n_cols
+    kp = -(-k // RANGES) * RANGES
+    return 8 * (kp * k + kp + RANGES * k)
 
 
 @functools.lru_cache(maxsize=None)
@@ -308,23 +465,32 @@ def _max_shared_bytes(device_index: int) -> int:
     return n
 
 
-def max_rows(device, n_cols: int) -> int:
-    """The most training rows one launch takes on `device` at `n_cols`
-    effect columns: the rows' residuals live in the block's shared memory."""
+def capacity_for(shared: int) -> int:
+    """The most effect columns whose block fits in `shared` bytes and whose
+    parameters fit in warp 0's registers (5 + K <= 32 x SLOTS)."""
+    k = min(int(math.isqrt(max(shared, 0) // 8)), 32 * SLOTS - _N_SCALAR)
+    while k > 0 and shared_bytes(k) > shared:
+        k -= 1
+    return k
+
+
+def max_cols(device) -> int:
+    """The most effect columns one launch takes on `device`: C lives in the
+    block's shared memory, the chain's state in one warp's registers."""
     if _lib is None:
         build()
     index = torch.device(device).index
     index = torch.cuda.current_device() if index is None else index
-    return (_max_shared_bytes(index) - shared_bytes(0, n_cols)) // 4
+    return capacity_for(_max_shared_bytes(index))
 
 
-def blocks_per_sm(device, n_rows: int, n_cols: int) -> int:
+def blocks_per_sm(device, n_cols: int) -> int:
     """How many blocks (chains) fit on one SM of `device` at once: the CUDA
     occupancy calculator on the kernel's registers and shared memory."""
     if _lib is None:
         build()
     with torch.cuda.device(device):
-        n = _lib.mcgp_hmc_blocks_per_sm(n_rows, n_cols)
+        n = _lib.mcgp_hmc_blocks_per_sm(n_cols)
     if n < 0:
         raise HMCKernelError("the occupancy query of the HMC kernel failed")
     return n
@@ -332,7 +498,8 @@ def blocks_per_sm(device, n_rows: int, n_cols: int) -> int:
 
 def ptxas_facts(log: str) -> dict[str, int]:
     """The kernel's registers, stack frame and spill bytes from the `ptxas
-    -v` report kept beside the library."""
+    -v` report kept beside the library (the largest over its instances, one
+    per number of parameters a lane holds)."""
     facts, inside = {}, False
     for line in log.splitlines():
         if m := re.search(r"Function properties for (\S+)", line):
@@ -341,14 +508,17 @@ def ptxas_facts(log: str) -> dict[str, int]:
             continue
         elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                             r"(\d+) bytes spill loads", line):
-            facts.update(stack=int(m[1]), spill_stores=int(m[2]), spill_loads=int(m[3]))
+            for key, v in zip(("stack", "spill_stores", "spill_loads"), m.groups()):
+                facts[key] = max(facts.get(key, 0), int(v))
         elif m := re.search(r"Used (\d+) registers", line):
-            facts["registers"] = int(m[1])
+            facts["registers"] = max(facts.get("registers", 0), int(m[1]))
     return facts
 
 
-def _check_state(kd: KernelDesign, theta, others: dict) -> None:
-    """Dtype, shape, contiguity and device of a transition's tensors."""
+def _check(kd: KernelDesign, theta, others: dict, iters: int | None = None) -> None:
+    """Dtype, shape, contiguity and device of a call's tensors: theta,
+    inv_mass and z (chains, dim), the others (chains,); with `iters`, z, u_jit
+    and u_acc carry a leading (iters,) axis."""
     if theta.dim() != 2 or theta.shape[1] != kd.dim:
         raise HMCKernelError(f"theta must be (chains, {kd.dim}), got {tuple(theta.shape)}")
     chains = theta.shape[0]
@@ -356,6 +526,8 @@ def _check_state(kd: KernelDesign, theta, others: dict) -> None:
         raise HMCKernelError("theta holds no chain")
     for name, x in {"theta": theta, **others}.items():
         want = (chains, kd.dim) if name in ("theta", "inv_mass", "z") else (chains,)
+        if iters is not None and name in ("z", "u_jit", "u_acc"):
+            want = (iters, *want)
         if tuple(x.shape) != want:
             raise HMCKernelError(f"{name} must be {want}, got {tuple(x.shape)}")
         if x.dtype != torch.float32:
@@ -371,32 +543,84 @@ def _check_state(kd: KernelDesign, theta, others: dict) -> None:
 
 
 def require_capacity(kd: KernelDesign, capacity: int, where: str) -> None:
-    """Raise `HMCKernelError` when kd has more rows than `capacity`, the
-    most one launch takes on the card named `where`."""
-    if kd.n_rows > capacity:
+    """Raise `HMCKernelError` when kd has more effect columns than
+    `capacity`, the most one launch takes on the card named `where`."""
+    if kd.n_cols > capacity:
         raise HMCKernelError(
-            f"the HMC kernel keeps every row's residual in shared memory and takes at most "
-            f"{capacity} rows at {kd.n_cols} effect columns on {where}; this design has "
-            f"{kd.n_rows}")
+            f"the HMC kernel keeps the design's K x K counts in one block's shared memory and "
+            f"takes at most {capacity} effect columns on {where}; this design has {kd.n_cols}")
 
 
-def _launch(kd: KernelDesign, theta, n_leapfrog: int, lp=None, eps=None, inv_mass=None, z=None,
-            u_jit=None, u_acc=None, theta_out=None, lp_out=None, alpha_out=None, grad_out=None):
+def _launch(kd: KernelDesign, theta, iters: int, n_leapfrog: int, adapt: bool = False,
+            **tensors) -> None:
+    """One launch of the kernel on theta's device and the current stream,
+    with `adapt` a warmup stage; `tensors` names the C entry's pointers
+    (absent ones are null)."""
     if _lib is None:
         build()
     t, d, c = kd.sizes
     card = torch.cuda.get_device_name(theta.device)
-    require_capacity(kd, max_rows(theta.device, kd.n_cols), card)
-    ptr = lambda x: None if x is None else x.data_ptr()
+    require_capacity(kd, max_cols(theta.device), card)
+    ptr = lambda name: None if tensors.get(name) is None else tensors[name].data_ptr()
+    scalars = (np.float32(TARGET_ACCEPT), np.float32(math.log(10.0)), np.float32(VAR_MIN),
+               np.float32(VAR_MAX))
     with torch.cuda.device(theta.device):
         err = _lib.mcgp_hmc_run(
-            kd.rows.data_ptr(), kd.col_start.data_ptr(), kd.col_rows.data_ptr(), kd.n_rows, t, d, c,
-            *kd.prior_prec, theta.data_ptr(), ptr(lp), ptr(eps), ptr(inv_mass), ptr(z), ptr(u_jit),
-            ptr(u_acc), ptr(theta_out), lp_out.data_ptr(), ptr(alpha_out), ptr(grad_out),
-            theta.shape[0], n_leapfrog, torch.cuda.current_stream().cuda_stream,
+            kd.counts.data_ptr(), kd.b.data_ptr(), kd.yty, kd.n_rows, t, d, c, *kd.prior_prec,
+            int(adapt), DA_T0, DA_GAMMA, DA_KAPPA, *(float(s) for s in scalars),
+            theta.data_ptr(), *(ptr(k) for k in ("lp", "eps", "inv_mass", "z", "u_jit", "u_acc")),
+            *(ptr(k) for k in ("theta_out", "lp_out", "alpha_out", "grad_out", "eps_out",
+                               "var_out", "lp0_out", "trace_theta", "trace_lp", "trace_eps",
+                               "trace_alpha")),
+            theta.shape[0], iters, n_leapfrog, torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise HMCKernelError(f"HMC kernel launch failed: CUDA error {err}")
+
+
+def hmc_stage(kd: KernelDesign, theta, eps0, inv_mass, z, u_jit, u_acc, n_leapfrog: int,
+              adapt: bool) -> Stage:
+    """One stage of every chain: theta, inv_mass (chains, dim) and eps0
+    (chains,) as the stage starts, z (iters, chains, dim), u_jit and u_acc
+    (iters, chains), float32 and contiguous, on kd's device. With `adapt` a
+    warmup stage, else sampling at eps0. Returns a `Stage` of new tensors.
+
+    CPU tensors run `stage_plain` with `hmc_transition_plain` steps on kd's
+    plain log posterior. CUDA tensors run the whole stage as one launch of
+    the kernel on the current stream (one block per chain), writing the
+    trace as it goes; a launch
+    error, or a design over the kernel's column capacity, raises
+    `HMCKernelError`, as do inputs of another dtype, shape, layout or
+    device."""
+    if z.dim() != 3 or z.shape[0] < 1:
+        raise HMCKernelError(f"z must be (iters >= 1, chains, dim), got {tuple(z.shape)}")
+    iters = z.shape[0]
+    _check(kd, theta, dict(eps=eps0, inv_mass=inv_mass, z=z, u_jit=u_jit, u_acc=u_acc), iters)
+    if n_leapfrog < 1:
+        raise HMCKernelError(f"n_leapfrog must be >= 1, got {n_leapfrog}")
+    if theta.device.type == "cpu":
+        step = functools.partial(_plain_step, kd, n_leapfrog)
+        return stage_plain(theta, kd.logp_fn, step, eps0, inv_mass, (z, u_jit, u_acc), adapt)
+    out = dict(theta_out=torch.empty_like(theta), lp_out=torch.empty_like(eps0),
+               alpha_out=torch.empty_like(eps0), lp0_out=torch.empty_like(eps0),
+               trace_theta=torch.empty_like(z), trace_lp=torch.empty_like(u_jit),
+               trace_eps=torch.empty_like(u_jit), trace_alpha=torch.empty_like(u_jit))
+    if adapt:
+        out.update(eps_out=torch.empty_like(eps0), var_out=torch.empty_like(theta))
+    _launch(kd, theta, iters, int(n_leapfrog), adapt, eps=eps0, inv_mass=inv_mass, z=z,
+            u_jit=u_jit, u_acc=u_acc, **out)
+    hmc_stage.launches += 1
+    return Stage(out["theta_out"], out["lp_out"], out["eps_out"] if adapt else eps0,
+                 out.get("var_out"), out["alpha_out"], out["lp0_out"], out["trace_theta"],
+                 out["trace_lp"], out["trace_eps"], out["trace_alpha"])
+
+
+hmc_stage.launches = 0
+
+
+def _plain_step(kd: KernelDesign, n_leapfrog: int, theta, lp, eps, inv_mass, z, u_jit, u_acc):
+    return hmc_transition_plain(theta, lp, eps, inv_mass, kd.logp_fn, kd.grad_fn, n_leapfrog,
+                                z, u_jit, u_acc)
 
 
 def hmc_transition(kd: KernelDesign, theta, lp, eps, inv_mass, z, u_jit, u_acc, n_leapfrog: int):
@@ -405,19 +629,18 @@ def hmc_transition(kd: KernelDesign, theta, lp, eps, inv_mass, z, u_jit, u_acc, 
     device. Returns (theta', lp', alpha), new tensors.
 
     CPU tensors run `hmc_transition_plain` with kd's plain log posterior.
-    CUDA tensors launch the kernel on the current stream (one block per
-    chain); a launch error, or a design over the kernel's row capacity,
-    raises `HMCKernelError`, as do inputs of another dtype, shape, layout
-    or device."""
-    _check_state(kd, theta, dict(lp=lp, eps=eps, inv_mass=inv_mass, z=z, u_jit=u_jit, u_acc=u_acc))
+    CUDA tensors launch the kernel's stage code for one iteration from the
+    given lp at the given eps (the same device code as a stage's
+    transition, so from a stage trace's state it gives the trace's next
+    state bitwise); refusals raise `HMCKernelError` as in `hmc_stage`."""
+    _check(kd, theta, dict(lp=lp, eps=eps, inv_mass=inv_mass, z=z, u_jit=u_jit, u_acc=u_acc))
     if n_leapfrog < 1:
         raise HMCKernelError(f"n_leapfrog must be >= 1, got {n_leapfrog}")
     if theta.device.type == "cpu":
-        return hmc_transition_plain(theta, lp, eps, inv_mass, kd.logp_fn, kd.grad_fn, n_leapfrog,
-                                    z, u_jit, u_acc)
+        return _plain_step(kd, n_leapfrog, theta, lp, eps, inv_mass, z, u_jit, u_acc)
     theta_out, lp_out, alpha = torch.empty_like(theta), torch.empty_like(lp), torch.empty_like(lp)
-    _launch(kd, theta, int(n_leapfrog), lp, eps, inv_mass, z, u_jit, u_acc, theta_out, lp_out,
-            alpha)
+    _launch(kd, theta, 1, int(n_leapfrog), lp=lp, eps=eps, inv_mass=inv_mass, z=z,
+            u_jit=u_jit, u_acc=u_acc, theta_out=theta_out, lp_out=lp_out, alpha_out=alpha)
     hmc_transition.launches += 1
     return theta_out, lp_out, alpha
 
@@ -430,15 +653,14 @@ def hmc_logp(kd: KernelDesign, theta: torch.Tensor, grad: bool = False):
     device, and with `grad` also its gradient (chains, dim).
 
     CPU tensors run kd's plain `logp_fn` (and `grad_fn`). CUDA tensors launch
-    the kernel with no leapfrog step, so the logp has the summation order of
-    the lp the transitions return."""
-    _check_state(kd, theta, {})
+    the kernel with no transition: the logp a stage starts from."""
+    _check(kd, theta, {})
     if theta.device.type == "cpu":
         lp = kd.logp_fn(theta)
         return (lp, kd.grad_fn(theta)) if grad else lp
     lp = torch.empty(theta.shape[0], dtype=torch.float32, device=theta.device)
     g = torch.empty_like(theta) if grad else None
-    _launch(kd, theta, 0, lp_out=lp, grad_out=g)
+    _launch(kd, theta, 0, 0, lp_out=lp, grad_out=g)
     hmc_logp.launches += 1
     return (lp, g) if grad else lp
 

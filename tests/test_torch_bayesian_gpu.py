@@ -1,11 +1,15 @@
 """The Bayesian qualifying model's HMC fit on a CUDA device. The fit runs
-every transition as one launch of the HMC kernel (csrc/hmc_kernel.cu): the
-kernel agrees with the plain version per call and per transition at states
-from a real fit (monte_carlo_gp_torch/validate/hmc.py's tolerances), the same
-seed twice gives bitwise the same posterior, a kernel fit agrees with a CPU
-fit of the same seed at the statistical tolerances the CPU tests hold the
-port to against the JAX package (tests/test_torch_bayesian.py), the kernel
-takes the archive before the last race of the synthetic 2024 season, and the
+each of its three stages (two warmup stages, then sampling) as one launch of
+the HMC kernel (csrc/hmc_kernel.cu): the one-transition entry reproduces the
+stage's trace bitwise and agrees with the plain version per call and per
+transition at states from a real fit (monte_carlo_gp_torch/validate/hmc.py's
+tolerances), a host replay of the adaptation matches the kernel's, the same
+seed twice gives bitwise the same
+posterior, a kernel fit agrees with a CPU fit of the same seed at the
+statistical tolerances the CPU tests hold the port to against the JAX
+package (tests/test_torch_bayesian.py), the kernel takes the archive before
+the last race of the synthetic 2024 season and a design of more rows than
+the row kernel held, refuses a design over its column capacity, and the
 Bayesian leg of the walk-forward pole-Brier gate runs on the card. The
 graphed fit (`sample_posterior_graphed`, every transition a replay of one
 captured CUDA graph), the yardstick the kernel is timed against, stays
@@ -100,14 +104,17 @@ def test_graphed_fits_release_their_graph(cuda_device):
 
 @pytest.mark.gpu
 def test_cuda_fit_is_bitwise_reproducible(cuda_device):
-    """Three kernel fits, seeds 7, 7 and 8: each transition one kernel launch
-    and each stage's starting logp one logp launch, no graph replayed; the
-    same seed bitwise the same posterior."""
+    """Three kernel fits, seeds 7, 7 and 8: each stage one kernel launch,
+    no per-transition or logp launch, no graph replayed; the same seed
+    bitwise the same posterior."""
     design = B.build_quali_design(world()[0])
-    H.hmc_transition.launches = H.hmc_logp.launches = B.transition_replays = 0
+    H.hmc_stage.launches = H.hmc_transition.launches = H.hmc_logp.launches = 0
+    B.transition_replays = 0
     a, b, c = (B.sample_posterior(design, num_warmup=200, num_samples=100, seed=s,
                                   device=cuda_device) for s in (7, 7, 8))
-    assert (H.hmc_transition.launches, H.hmc_logp.launches, B.transition_replays) == (900, 6, 0)
+    launches = (H.hmc_stage.launches, H.hmc_transition.launches, H.hmc_logp.launches,
+                B.transition_replays)
+    assert launches == (9, 0, 0, 0)
     assert np.array_equal(a.raw, b.raw) and np.array_equal(a.accept_rate, b.accept_rate)
     assert not np.array_equal(a.raw, c.raw)
 
@@ -115,22 +122,28 @@ def test_cuda_fit_is_bitwise_reproducible(cuda_device):
 @pytest.mark.gpu
 @pytest.mark.parametrize("where", ["world", "bahrain"])
 def test_kernel_matches_plain_per_call_and_per_transition(cuda_device, tmp_path, where):
-    """At states recorded from a kernel fit (both warmup stages and the
-    sampling phase), the kernel's logp and gradient and one transition
-    against the plain version on the card; and the kernel's logp and
-    gradient against `csr_log_posterior`, the plain function of the
-    kernel's own arithmetic, more tightly."""
+    """At states recorded from a kernel fit's stage traces (both warmup
+    stages and the sampling phase): the one-transition entry gives the
+    trace's next state bitwise; the kernel's logp and gradient and one
+    transition against the plain version on the card; the kernel's logp and
+    gradient against `stats_log_posterior`, the plain function of the
+    kernel's own arithmetic, more tightly; the host replay of both warmup
+    stages' adaptation against the kernel's."""
     design = (B.build_quali_design(world()[0]) if where == "world"
               else _archive_design(tmp_path, "Bahrain", cuda_device))
-    with hmc.recorded_transitions([0, 99, 150, 299, 300, 450, 599]) as states:
+    with hmc.recorded_transitions([0, 99, 150, 299, 300, 450, 599]) as rec:
         B.sample_posterior(design, num_warmup=300, num_samples=300, seed=5, device=cuda_device)
     kd = B.kernel_design(design, cuda_device)
-    report = hmc.kernel_vs_plain(kd, states, 48)
-    print(f"{where}: kernel vs plain {report}")
+    entry = hmc.trace_vs_entry(kd, rec.states, 48)
+    report = hmc.kernel_vs_plain(kd, rec.states, 48)
+    replay = hmc.adaptation_vs_replay(rec.stages)
+    print(f"{where}: entry vs trace {entry}; kernel vs plain {report}; adaptation {replay}")
+    assert entry["ok"] and entry["chains"] == 28, entry
     assert report["ok"], report
-    for s in states:
+    assert replay["ok"] and replay["stages"] == 2, replay
+    for s in rec.states:
         lp, grad = H.hmc_logp(kd, s["theta"], grad=True)
-        want_lp, want_grad = H.csr_log_posterior(kd, s["theta"])
+        want_lp, want_grad = H.stats_log_posterior(kd, s["theta"])
         torch.testing.assert_close(lp, want_lp, rtol=1e-6, atol=1e-3)
         torch.testing.assert_close(grad, want_grad, rtol=1e-6, atol=1e-4)
 
@@ -171,41 +184,78 @@ def _archive_design(tmp_path, race, device):
 @pytest.mark.gpu
 def test_kernel_at_the_largest_synthetic_archive(cuda_device, tmp_path):
     """The archive before the last race of the synthetic 2024 season: the
-    kernel fits it when it is within the kernel's row capacity, and raises
-    naming the capacity when it is not."""
+    kernel fits it when its effect columns are within the kernel's column
+    capacity, and raises naming the capacity when they are not."""
     from monte_carlo_gp_torch.data.synthetic import CALENDAR
 
     design = _archive_design(tmp_path, CALENDAR[-1], cuda_device)
-    capacity = H.max_rows(cuda_device, B._param_dim(design) - B._N_SCALAR)
-    print(f"{CALENDAR[-1]} 2024: {design.n_rows} rows, capacity {capacity} rows")
-    if design.n_rows > capacity:
-        with pytest.raises(H.HMCKernelError, match=f"at most {capacity} rows"):
+    capacity = H.max_cols(cuda_device)
+    n_cols = B._param_dim(design) - B._N_SCALAR
+    print(f"{CALENDAR[-1]} 2024: {design.n_rows} rows, {n_cols} effect columns, capacity "
+          f"{capacity} columns")
+    if n_cols > capacity:
+        with pytest.raises(H.HMCKernelError, match=f"at most {capacity} effect columns"):
             B.sample_posterior(design, num_warmup=20, num_samples=10, device=cuda_device)
         return
-    H.hmc_transition.launches = 0
+    H.hmc_stage.launches = 0
     post = B.sample_posterior(design, num_warmup=200, num_samples=100, seed=3, device=cuda_device)
-    assert H.hmc_transition.launches == 300
+    assert H.hmc_stage.launches == 3
     assert np.isfinite(post.raw).all()
     assert np.all((post.accept_rate > 0.6) & (post.accept_rate < 0.99))
 
 
+def _generated_design(n_rows, sizes, seed):
+    """A design of `n_rows` rows whose gaps follow the model: team, driver
+    and circuit effects plus noise, from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    t, d, c = sizes
+    team, driver, circuit = (rng.integers(0, k, n_rows) for k in sizes)
+    y = (rng.normal(1.0, 0.5, t)[team] + rng.normal(0, 0.3, d)[driver]
+         + rng.normal(0, 0.2, c)[circuit] + rng.normal(0, 0.1, n_rows))
+    return B.QualiDesign(
+        y=y.astype(np.float32), team_idx=team.astype(np.int32),
+        driver_idx=driver.astype(np.int32), circuit_idx=circuit.astype(np.int32),
+        teams=tuple(f"T{i}" for i in range(t)), drivers=tuple(f"D{i}" for i in range(d)),
+        circuits=tuple(f"C{i}" for i in range(c)))
+
+
+@pytest.mark.gpu
+def test_a_design_past_the_old_row_limit_fits(cuda_device):
+    """60,000 rows at 50 effect columns, past the 57,705 rows the row
+    kernel took at 50 columns: rows no longer bound a launch, so the fit
+    runs as its three stage launches, its logp and gradient equal to the
+    kernel's arithmetic in plain PyTorch at the final state."""
+    design = _generated_design(60_000, (10, 24, 16), seed=8)
+    H.hmc_stage.launches = 0
+    post = B.sample_posterior(design, num_warmup=200, num_samples=100, seed=2, device=cuda_device)
+    assert H.hmc_stage.launches == 3
+    assert np.isfinite(post.raw).all() and np.all(post.accept_rate > 0.3)
+    kd = B.kernel_design(design, cuda_device)
+    theta = torch.from_numpy(np.ascontiguousarray(post.raw[:, -1])).to(cuda_device)
+    lp, grad = H.hmc_logp(kd, theta, grad=True)
+    want_lp, want_grad = H.stats_log_posterior(kd, theta)
+    torch.testing.assert_close(lp, want_lp, rtol=1e-6, atol=1e-3)
+    torch.testing.assert_close(grad, want_grad, rtol=1e-6, atol=1e-4)
+
+
 @pytest.mark.gpu
 def test_a_design_over_capacity_fails_the_bayesian_weekend(cuda_device, tmp_path, monkeypatch):
-    """With the kernel's row capacity below the Bahrain 2024 archive, the
-    predictor's Bayesian weekend on the card raises `HMCKernelError` naming
-    the capacity, and takes no Elo grid in its place."""
+    """With the kernel's column capacity one below the Bahrain 2024
+    archive's 50 effect columns, the predictor's Bayesian weekend on the
+    card raises `HMCKernelError` naming the capacity, launches nothing and
+    takes no Elo grid in its place."""
     from monte_carlo_gp_torch.data.synthetic import SyntheticBackend
     from monte_carlo_gp_torch.models import predictor as P
 
     events = []
     monkeypatch.setattr(P, "log_event", lambda name, **kw: events.append(name))
-    monkeypatch.setattr(H, "max_rows", lambda device, n_cols: 1000)
+    monkeypatch.setattr(H, "max_cols", lambda device: 49)
     p = P.F1Predictor(cache_dir=tmp_path, backend=SyntheticBackend(seed=2718), device=cuda_device,
                       quali_model="bayesian")
-    H.hmc_logp.launches = 0
-    with pytest.raises(H.HMCKernelError, match="at most 1000 rows"):
+    H.hmc_stage.launches = 0
+    with pytest.raises(H.HMCKernelError, match="at most 49 effect columns on .*this design has 50"):
         p.prepare_weekend(2024, "Bahrain")
-    assert H.hmc_logp.launches == 0
+    assert H.hmc_stage.launches == 0
     assert "alt_quali_fallback" not in events
 
 

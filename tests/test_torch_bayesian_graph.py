@@ -145,7 +145,7 @@ def test_schedule_on_overwritten_buffers_equals_eager_chains(design):
     init, draws = B.chain_draws(5, 3, dim, 30 + 12)
     theta0 = 0.1 * init
     with torch.inference_mode():
-        want, want_acc = B._run_chains(theta0, logp, grad, 30, 12, 6, draws)
-        got, got_acc = B._schedule(theta0, logp, _BufferedStep(logp, grad, 6, 3, dim), 30, 12, draws)
+        want, want_acc = B._run_chains(theta0, logp, grad, 30, 6, draws)
+        got, got_acc = B._schedule(theta0, logp, _BufferedStep(logp, grad, 6, 3, dim), 30, draws)
     assert torch.equal(got, want) and torch.equal(got_acc, want_acc)
     assert torch.equal(theta0, 0.1 * init)  # the chain's start is only read

@@ -41,8 +41,8 @@ def test_chains_keep_their_own_state(world):
     init_b = torch.cat([init[:1], other_init[1:]])
     draws_b = tuple(torch.cat([a[:, :1], b[:, 1:]], dim=1) for a, b in zip(draws, other))
     with torch.inference_mode():
-        a, acc_a = B._run_chains(0.1 * init, logp, grad, 60, 20, 12, draws)
-        b, acc_b = B._run_chains(0.1 * init_b, logp, grad, 60, 20, 12, draws_b)
+        a, acc_a = B._run_chains(0.1 * init, logp, grad, 60, 12, draws)
+        b, acc_b = B._run_chains(0.1 * init_b, logp, grad, 60, 12, draws_b)
     assert not torch.equal(a[:, 1:], b[:, 1:])
     np.testing.assert_array_equal(a[:, 0].numpy(), b[:, 0].numpy())
     assert acc_a[0] == acc_b[0] and not torch.equal(acc_a[1:], acc_b[1:])

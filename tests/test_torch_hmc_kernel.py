@@ -1,18 +1,24 @@
-"""The HMC transition kernel's CPU side (`monte_carlo_gp_torch/ops/hmc_kernel.py`):
-the CSR layout the wrapper builds for the kernel, the plain PyTorch function
-of the kernel's own arithmetic (`csr_log_posterior`) against the port's
+"""The HMC kernel's CPU side (`monte_carlo_gp_torch/ops/hmc_kernel.py`): the
+design's sufficient statistics the wrapper builds for the kernel (C = A^T A,
+b = A^T y, y^T y, n), the plain PyTorch function of the kernel's own
+arithmetic from them (`stats_log_posterior`) against the port's
 `make_log_posterior` and against the JAX package's log posterior and its
-`jax.grad`, the accept rule on a diverging state, and the wrapper on CPU
-tensors (the plain version, no launch, its input checks). The kernel itself
-runs only on a card: tests/test_torch_bayesian_gpu.py holds it to the plain
-version there.
+`jax.grad`, the diagonal blocks of C, the accept rule on a diverging
+state, the stage entry's CPU route (bitwise the eager warmup stage and
+sampling loop the fit ran before the stage entry) and the host replay of
+its adaptation, and the wrapper on CPU tensors (the plain version, no
+launch, its input checks). The kernel itself runs only on a card:
+tests/test_torch_bayesian_gpu.py holds it to the plain version there.
 
 Designs: the small generative world (tests/torch_quali_world.py) and the
 synthetic archive before Bahrain 2024 (5,106 rows, 50 effect columns), plus a
 random one from a numpy seed. Tolerance against the plain log posterior and
-JAX, rtol 1e-4 and atol 1e-2: float32 sums of up to ~5,100 terms of order one
-taken in another order, whose worst case is log2(N) · 2^-24 · sum|terms| ~ 4e-3.
+JAX, rtol 1e-4 and atol 1e-2: their float32 sums of up to ~5,100 terms of
+order one, whose worst case is log2(N) · 2^-24 · sum|terms| ~ 4e-3 (the
+statistics form sums in float64).
 """
+
+import math
 
 import jax
 import jax.numpy as jnp
@@ -85,38 +91,42 @@ def _state(kd, seed, eps=(5e-4, 2e-3, 3e-3, 5e-3)):
 
 
 @pytest.mark.parametrize("which", ["world", "bahrain", "random"])
-def test_csr_lists_every_row_once_under_each_of_its_columns(designs, which):
+def test_statistics_equal_numpy_float64(designs, which):
+    """(C, b, y^T y, n) equal numpy's float64 A^T A, A^T y and y^T y of the
+    one-hot design built here, exactly; C is symmetric, its diagonal holds
+    each column's row count and each of its rows sums to 3 x that count
+    (a row has three columns)."""
     design = designs[which][0] if which != "random" else _random_design()
     sizes = (len(design.teams), len(design.drivers), len(design.circuits))
-    row_cols, col_start, col_rows = H.column_layout(design.team_idx, design.driver_idx,
-                                                    design.circuit_idx, sizes)
-    n, k = design.n_rows, sum(sizes)
     t, d, _ = sizes
-    np.testing.assert_array_equal(row_cols, np.stack(
-        [design.team_idx, t + design.driver_idx, t + d + design.circuit_idx], 1))
-    assert col_start[0] == 0 and col_start[-1] == 3 * n and col_start.shape == (k + 1,)
-    assert np.all(np.diff(col_start) >= 0)
-    seen = np.zeros((n, k), np.int64)
-    for col in range(k):
-        rows = col_rows[col_start[col]:col_start[col + 1]]
-        assert np.all(np.diff(rows) > 0), f"column {col} is not in row order"
-        seen[rows, col] += 1
-    want = np.zeros((n, k), np.int64)
-    want[np.arange(n)[:, None], row_cols] = 1
-    np.testing.assert_array_equal(seen, want)  # each row once under each of its three columns
-    assert row_cols.dtype == col_start.dtype == col_rows.dtype == np.int32
+    n, k = design.n_rows, sum(sizes)
+    a = np.zeros((n, k))
+    for offset, idx in ((0, design.team_idx), (t, design.driver_idx), (t + d, design.circuit_idx)):
+        a[np.arange(n), offset + idx] = 1.0
+    y = design.y.astype(np.float64)
+    kd = _kernel_design(design)
+    assert kd.counts.dtype == kd.b.dtype == torch.float64 and kd.n_rows == n
+    counts = kd.counts.numpy()
+    np.testing.assert_array_equal(counts, a.T @ a)
+    np.testing.assert_array_equal(kd.b.numpy(), a.T @ y)
+    assert kd.yty == float(y @ y)
+    col_counts = a.sum(axis=0)
+    np.testing.assert_array_equal(np.diag(counts), col_counts)
+    np.testing.assert_array_equal(counts.sum(axis=1), 3 * col_counts)
+    np.testing.assert_array_equal(counts, counts.T)
+    assert np.array_equal(counts, np.round(counts)) and counts.sum() == 9 * n
 
 
-def test_kernel_design_packs_rows_and_precisions():
+def test_kernel_design_packs_statistics_and_precisions():
     design = _random_design()
     kd = _kernel_design(design)
-    assert kd.rows.shape == (design.n_rows, 4) and kd.rows.dtype == torch.int32
-    np.testing.assert_array_equal(kd.rows[:, 3].contiguous().view(torch.float32).numpy(), -design.y)
+    assert kd.counts.shape == (19, 19) and kd.b.shape == (19,)
     assert kd.dim == B._param_dim(design) and kd.n_cols == kd.dim - B._N_SCALAR
     prec = torch.tensor([s**-2 for s in B._PRIOR_SCALES], dtype=torch.float32)
     assert list(kd.prior_prec) == prec.tolist()
     with pytest.raises(H.HMCKernelError, match="team indices"):
-        H.column_layout(design.team_idx + 10, design.driver_idx, design.circuit_idx, (4, 9, 6))
+        H.design_statistics(design.y, design.team_idx + 10, design.driver_idx, design.circuit_idx,
+                            (4, 9, 6))
 
 
 @pytest.mark.parametrize("which,spread,seed", [("world", 0.5, 0), ("world", 0.05, 1),
@@ -126,7 +136,7 @@ def test_kernel_arithmetic_equals_make_log_posterior(designs, which, spread, see
     design = designs[which][0] if which != "random" else _random_design()
     kd = _kernel_design(design)
     theta = torch.from_numpy(_thetas(kd.dim, 5, seed, spread))
-    lp, grad = H.csr_log_posterior(kd, theta)
+    lp, grad = H.stats_log_posterior(kd, theta)
     np.testing.assert_allclose(lp.numpy(), kd.logp_fn(theta).numpy(), rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(grad.numpy(), kd.grad_fn(theta).numpy(), rtol=RTOL, atol=ATOL)
 
@@ -143,7 +153,7 @@ def test_kernel_arithmetic_equals_jax(designs, which):
     jlogp, _ = JB.make_log_posterior(jdesign)
     for spread, seed in ((0.5, 6), (0.05, 7)):
         theta = _thetas(kd.dim, 5, seed, spread)
-        lp, grad = H.csr_log_posterior(kd, torch.from_numpy(theta))
+        lp, grad = H.stats_log_posterior(kd, torch.from_numpy(theta))
         want_lp = np.asarray(jax.jit(jax.vmap(jlogp))(jnp.asarray(theta)))
         want_grad = np.asarray(jax.jit(jax.vmap(jax.grad(jlogp)))(jnp.asarray(theta)))
         np.testing.assert_allclose(lp.numpy(), want_lp, rtol=RTOL, atol=ATOL)
@@ -172,7 +182,7 @@ def test_diverging_state_is_rejected(designs, where):
 def test_wrapper_on_cpu_runs_the_plain_version(designs):
     kd = _kernel_design(designs["world"][0])
     s = _state(kd, seed=9)
-    launches = H.hmc_transition.launches, H.hmc_logp.launches
+    launches = H.hmc_stage.launches, H.hmc_transition.launches, H.hmc_logp.launches
     got = H.hmc_transition(kd, n_leapfrog=12, **s)
     want = B._hmc_transition(s["theta"], s["lp"], s["eps"], s["inv_mass"], kd.logp_fn,
                              kd.grad_fn, 12, s["z"], s["u_jit"], s["u_acc"])
@@ -181,7 +191,8 @@ def test_wrapper_on_cpu_runs_the_plain_version(designs):
     assert torch.equal(H.hmc_logp(kd, s["theta"]), kd.logp_fn(s["theta"]))
     lp, grad = H.hmc_logp(kd, s["theta"], grad=True)
     assert torch.equal(lp, kd.logp_fn(s["theta"])) and torch.equal(grad, kd.grad_fn(s["theta"]))
-    assert (H.hmc_transition.launches, H.hmc_logp.launches) == launches == (0, 0)
+    assert (H.hmc_stage.launches, H.hmc_transition.launches, H.hmc_logp.launches) == launches
+    assert launches == (0, 0, 0)
 
 
 def _bad(case, s):
@@ -229,32 +240,32 @@ def test_routes_on_the_cpu_are_the_eager_fit(designs):
     design = designs["world"][0]
     kw = dict(num_chains=2, num_warmup=20, num_samples=10, num_leapfrog=6, seed=3, device="cpu")
     plain = B.sample_posterior(design, plain=True, **kw)
-    H.hmc_transition.launches = H.hmc_logp.launches = 0
+    H.hmc_stage.launches = H.hmc_transition.launches = H.hmc_logp.launches = 0
     for post in (B.sample_posterior(design, **kw), B.sample_posterior_graphed(design, **kw)):
         np.testing.assert_array_equal(post.raw, plain.raw)
         np.testing.assert_array_equal(post.accept_rate, plain.accept_rate)
-    assert H.hmc_transition.launches == H.hmc_logp.launches == 0
+    assert H.hmc_stage.launches == H.hmc_transition.launches == H.hmc_logp.launches == 0
 
 
 def _refuse_capacity(kd, theta, *args, **kw):
     """The wrapper's capacity check as it runs before a launch, on a card
-    whose shared memory took one row fewer than kd has."""
-    H.require_capacity(kd, kd.n_rows - 1, "a card with one row too few")
+    whose shared memory took one effect column fewer than kd has."""
+    H.require_capacity(kd, kd.n_cols - 1, "a card with one column too few")
 
 
 def _refuse_inputs(kd, theta, *args, **kw):
     """The wrapper's input checks on a float64 theta."""
-    return REAL_HMC_LOGP(kd, theta.double(), *args, **kw)
+    return REAL_HMC_STAGE(kd, theta.double(), *args, **kw)
 
 
-REAL_HMC_LOGP = H.hmc_logp
+REAL_HMC_STAGE = H.hmc_stage
 
 
 @pytest.mark.parametrize("refusal,match", [(_refuse_capacity, "at most"),
                                            (_refuse_inputs, "float32")])
 def test_a_refused_kernel_fails_the_bayesian_weekend(tmp_path, monkeypatch, refusal, match):
     """A refusal of the HMC kernel's wrapper inside the fit (a design over
-    the kernel's row capacity, or inputs it does not take) fails
+    the kernel's column capacity, or inputs it does not take) fails
     `prepare_weekend` with `HMCKernelError`: the predictor takes the Elo grid
     only when the archive cannot support a fit (a ValueError), and logs no
     such fallback here."""
@@ -263,7 +274,7 @@ def test_a_refused_kernel_fails_the_bayesian_weekend(tmp_path, monkeypatch, refu
 
     events = []
     monkeypatch.setattr(P, "log_event", lambda name, **kw: events.append(name))
-    monkeypatch.setattr(H, "hmc_logp", refusal)  # the fit's first call into the wrapper
+    monkeypatch.setattr(H, "hmc_stage", refusal)  # the fit's first call into the wrapper
     p = P.F1Predictor(cache_dir=tmp_path, backend=SyntheticBackend(seed=2718), device="cpu",
                       quali_model="bayesian")
     p._bayes_model = B.BayesianQualiModel(num_warmup=4, num_samples=2, device="cpu")
@@ -286,29 +297,190 @@ def test_ptxas_facts_reads_the_kernel_entry():
     assert H.ptxas_facts(log) == {"stack": 0, "spill_stores": 0, "spill_loads": 0, "registers": 40}
 
 
-def test_shared_bytes_counts_state_effects_and_rows():
-    # theta, its start, p, inv_mass and the gradient (5 x dim), the effects
-    # and their column sums (2 x K), the warp partials and one word a row
-    assert H.shared_bytes(5106, 50) == 4 * (5 * 55 + 2 * 50 + H.THREADS // 32 + 5106)
+def test_shared_bytes_counts_the_counts_and_effects():
+    # C padded to 52 rows (52 x K), the effects (52) and the four range sums
+    # per effect, float64; the chain's state lives in registers
+    assert H.shared_bytes(50) == 8 * (52 * 50 + 52 + 4 * 50)
+    # an H100's opt-in shared memory per block, 232,448 B, takes 167 columns
+    cap = H.capacity_for(232_448)
+    assert cap == 167 and H.shared_bytes(cap) <= 232_448 < H.shared_bytes(cap + 1)
+    # a larger block would still stop at warp 0's registers: 5 + K <= 192
+    assert H.capacity_for(10**6) == 32 * H.SLOTS - 5
+    assert H.capacity_for(0) == 0
 
 
 def test_recorded_states_and_the_plain_comparison_on_the_cpu(designs):
     """`validate.hmc`: the recorder keeps the chosen transitions' inputs of a
-    fit without changing it; on CPU tensors both sides of `kernel_vs_plain`
-    are the plain version, so every difference reads 0."""
+    fit, as its stages' traces give them, and every stage, without changing
+    the fit; on CPU tensors the one-transition entry, both sides of
+    `kernel_vs_plain` and the stage are the plain version, so the entry
+    equals the trace bitwise, every difference from the plain version reads
+    0 and the host replay of each warmup stage's adaptation is bitwise."""
     from monte_carlo_gp_torch.validate import hmc
 
     design = designs["world"][0]
     kw = dict(num_chains=2, num_warmup=20, num_samples=10, num_leapfrog=6, seed=3, device="cpu")
-    with hmc.recorded_transitions([0, 15, 29, 40]) as states:
+    with hmc.recorded_transitions([0, 9, 10, 15, 29, 40]) as rec:
         post = B.sample_posterior(design, **kw)
     np.testing.assert_array_equal(post.raw, B.sample_posterior(design, **kw).raw)
-    assert len(states) == 3  # the fit has 30 transitions
+    states = rec.states
+    assert len(states) == 5  # the fit has 30 transitions
     assert states[2]["theta"].shape == (2, B._param_dim(design))
-    report = hmc.kernel_vs_plain(B.kernel_design(design, "cpu"), states, 6)
-    assert report["ok"] and report["chains"] == 6
+    assert [st["adapt"] for st in rec.stages] == [True, True, False]
+    kd = B.kernel_design(design, "cpu")
+    entry = hmc.trace_vs_entry(kd, states, 6)
+    assert entry["ok"] and entry["chains"] == 10 and entry["max_abs"] == 0.0
+    report = hmc.kernel_vs_plain(kd, states, 6)
+    assert report["ok"] and report["chains"] == 10
     assert report["logp"] == report["grad"] == report["theta"] == report["lp"] == 0.0
     assert report["decisions_differ"] == 0
+    replay = hmc.adaptation_vs_replay(rec.stages)
+    assert replay["ok"] and replay["stages"] == 2 and all(replay["bitwise"].values())
+    # a state whose trace was altered is caught
+    theta = states[1]["want"][0].clone()
+    theta[0, 0] += 1.0
+    states[1]["want"] = (theta, *states[1]["want"][1:])
+    assert hmc.trace_vs_entry(kd, states, 6)["differ"] == 1
+
+
+def _eager_warmup_stage(theta, logp_fn, step, inv_mass, eps0, draws):
+    """The warmup stage of the fit as the port ran it before the stage
+    entry (models/bayesian.py `_warmup_stage`), kept verbatim as the
+    reference of the stage's plain version."""
+    z, u_jit, u_acc = draws
+    n_iters = z.shape[0]
+    half = n_iters // 2
+    lp = logp_fn(theta)
+    mu = math.log(10.0) + torch.log(eps0)
+    h_bar = torch.zeros_like(eps0)
+    log_eps = torch.log(eps0)
+    log_eps_bar = log_eps
+    w_n = 0
+    w_mean = torch.zeros_like(theta)
+    w_m2 = torch.zeros_like(theta)
+    alpha_sum = torch.zeros_like(eps0)
+    for it in range(n_iters):
+        theta, lp, alpha = step(theta, lp, torch.exp(log_eps), inv_mass, z[it], u_jit[it], u_acc[it])
+        alpha_sum = alpha_sum + alpha
+        m = it + 1.0
+        h_bar = (1.0 - 1.0 / (m + 10.0)) * h_bar + (0.8 - alpha) / (m + 10.0)
+        log_eps = mu - math.sqrt(m) / 0.05 * h_bar
+        w = m ** (-0.75)
+        log_eps_bar = w * log_eps + (1.0 - w) * log_eps_bar
+        if it >= half:
+            w_n += 1
+            delta = theta - w_mean
+            w_mean = w_mean + delta / w_n
+            w_m2 = w_m2 + delta * (theta - w_mean)
+    var = w_m2 / (w_n - 1) if w_n > 1 else torch.ones_like(theta)
+    var = var.clamp(1e-4, 1e4)
+    return theta, lp, torch.exp(log_eps_bar), var, alpha_sum / n_iters
+
+
+def _eager_sampling(theta, lp, step, eps, inv_mass, draws):
+    """The sampling loop as the port ran it before the stage entry."""
+    z, u_jit, u_acc = draws
+    samples = torch.empty((z.shape[0], *theta.shape), dtype=theta.dtype)
+    alpha_sum = torch.zeros_like(eps)
+    for i in range(z.shape[0]):
+        theta, lp, alpha = step(theta, lp, eps, inv_mass, z[i], u_jit[i], u_acc[i])
+        samples[i] = theta
+        alpha_sum = alpha_sum + alpha
+    return samples, alpha_sum / z.shape[0]
+
+
+def _stage_inputs(kd, seed, iters, chains=3):
+    rng = np.random.default_rng(seed)
+    theta = torch.from_numpy(_thetas(kd.dim, chains, seed, 0.1))
+    eps0 = torch.from_numpy(rng.uniform(2e-3, 8e-3, chains).astype(np.float32))
+    inv_mass = torch.from_numpy(rng.uniform(0.5, 1.5, (chains, kd.dim)).astype(np.float32))
+    z = torch.from_numpy(rng.standard_normal((iters, chains, kd.dim)).astype(np.float32))
+    u = torch.from_numpy(rng.uniform(size=(2, iters, chains)).astype(np.float32))
+    return theta, eps0, inv_mass, z, u[0].contiguous(), u[1].contiguous()
+
+
+@pytest.mark.parametrize("adapt,iters,seed", [(True, 20, 0), (True, 7, 1), (False, 10, 2)])
+def test_stage_on_the_cpu_is_the_eager_stage(designs, adapt, iters, seed):
+    """`hmc_stage` on CPU tensors: a warmup stage bitwise the eager
+    `_warmup_stage` the fit ran before the stage entry (final theta, lp,
+    step size, variance, mean alpha), a sampling stage bitwise its sampling
+    loop (the trace's thetas are the samples) from logp at the start; no
+    launch."""
+    kd = _kernel_design(designs["world"][0])
+    theta, eps0, inv_mass, z, u_jit, u_acc = _stage_inputs(kd, seed, iters)
+    launches = H.hmc_stage.launches
+    got = H.hmc_stage(kd, theta, eps0, inv_mass, z, u_jit, u_acc, 6, adapt)
+    step = lambda *a: B._hmc_transition(*a[:4], kd.logp_fn, kd.grad_fn, 6, *a[4:])
+    assert H.hmc_stage.launches == launches
+    assert torch.equal(got.lp0, kd.logp_fn(theta))
+    assert got.trace_theta.shape == (iters, 3, kd.dim) and got.trace_alpha.shape == (iters, 3)
+    if adapt:
+        want = _eager_warmup_stage(theta, kd.logp_fn, step, inv_mass, eps0, (z, u_jit, u_acc))
+        for a, b in zip((got.theta, got.lp, got.eps, got.var, got.alpha_mean), want):
+            assert torch.equal(a, b)
+        assert torch.equal(got.trace_eps[0], torch.exp(torch.log(eps0)))
+    else:
+        samples, accept = _eager_sampling(theta, kd.logp_fn(theta), step, eps0, inv_mass,
+                                         (z, u_jit, u_acc))
+        assert torch.equal(got.trace_theta, samples) and torch.equal(got.alpha_mean, accept)
+        assert got.var is None and torch.equal(got.eps, eps0)
+        assert torch.equal(got.trace_eps, eps0.expand(iters, 3))
+    assert torch.equal(got.trace_theta[-1], got.theta) and torch.equal(got.trace_lp[-1], got.lp)
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+def test_replay_of_the_plain_trace_equals_the_stage(designs, seed):
+    """`replay_adaptation` fed a plain warmup stage's trace (its thetas and
+    alphas) gives the stage's step size at every iteration, its final step
+    size, variance and mean alpha, bitwise."""
+    kd = _kernel_design(designs["bahrain"][0])
+    theta, eps0, inv_mass, z, u_jit, u_acc = _stage_inputs(kd, seed, 12)
+    st = H.hmc_stage(kd, theta, eps0, inv_mass, z, u_jit, u_acc, 4, True)
+    replay = H.replay_adaptation(eps0, st.trace_theta, st.trace_alpha)
+    assert torch.equal(replay["eps"], st.trace_eps)
+    assert torch.equal(replay["final_eps"], st.eps) and torch.equal(replay["var"], st.var)
+    assert torch.equal(replay["alpha_mean"], st.alpha_mean)
+    assert not torch.equal(st.trace_eps[0], st.trace_eps[-1])  # the step size moved
+
+
+@pytest.mark.parametrize("which", ["world", "bahrain", "random"])
+def test_counts_within_a_factor_are_diagonal(designs, which):
+    """A row has one team, one driver and one circuit, so C's team x team,
+    driver x driver and circuit x circuit blocks are diagonal: the product's
+    work is the non-zeros of C (the bound `chip_smoke.py` states counts
+    them), fewer than K^2 by the off-diagonal entries of those blocks."""
+    design = designs[which][0] if which != "random" else _random_design()
+    kd = _kernel_design(design)
+    counts = kd.counts.numpy()
+    edges = np.cumsum((0, *kd.sizes))
+    off_diagonal = 0
+    for lo, hi in zip(edges[:-1], edges[1:]):
+        block = counts[lo:hi, lo:hi]
+        np.testing.assert_array_equal(block, np.diag(np.diag(block)))
+        off_diagonal += (hi - lo) * (hi - lo - 1)
+    assert np.count_nonzero(counts) <= kd.n_cols ** 2 - off_diagonal
+
+
+def _bad_stage(case, kd):
+    args = list(_stage_inputs(kd, 9, 5))
+    if case == "2-D z":
+        args[3] = args[3][0].contiguous()
+    elif case == "u_jit of another length":
+        args[4] = args[4][:-1].contiguous()
+    elif case == "float64 eps0":
+        args[1] = args[1].double()
+    elif case == "strided u_acc":
+        args[5] = torch.cat([args[5], args[5]], 1)[:, ::2]
+    return args, (0 if case == "no leapfrog step" else 4)
+
+
+@pytest.mark.parametrize("case", ["2-D z", "u_jit of another length", "float64 eps0",
+                                  "strided u_acc", "no leapfrog step"])
+def test_stage_refuses_bad_inputs(designs, case):
+    kd = _kernel_design(designs["world"][0])
+    args, n_leapfrog = _bad_stage(case, kd)
+    with pytest.raises(H.HMCKernelError):
+        H.hmc_stage(kd, *args, n_leapfrog, True)
 
 
 def test_rhat_by_seed_on_the_cpu(designs):

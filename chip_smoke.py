@@ -449,7 +449,7 @@ def season_phases(dev, golden_cells: int) -> tuple[list[int], dict, dict, dict]:
     from monte_carlo_gp_torch.ops import philox
     from monte_carlo_gp_torch.ops import race_kernel as rk
     from monte_carlo_gp_torch.profile_kernel import overtake_passes
-    from monte_carlo_gp_torch.utils.profiling import Phase, timed_calls
+    from monte_carlo_gp_torch.utils.profiling import RECORDER
     from monte_carlo_gp_torch.validate import backtest as bt
 
     # ---- the synthetic 2024 season, prepared on this machine ----------------
@@ -503,11 +503,10 @@ def season_phases(dev, golden_cells: int) -> tuple[list[int], dict, dict, dict]:
     route = ("sklearn.calibration_curve" if importlib.util.find_spec("sklearn")
              else "NumPy fallback (scikit-learn not installed)")
     cache = ["--cache-dir", str(SMOKE_CACHE / "backtest")]
-    timers = Phase()
-    with timed_calls(bt, "prepare_season_plans", timers):
-        batched, wall, k1, k2 = run_counted(rk, lambda: backtest_cli.run(
-            [*BACKTEST_ARGS, "--seasons", *SEASONS, "--batched", *cache]))
-    prep_s = timers.totals["prepare_season_plans"]
+    before = RECORDER.copy()
+    batched, wall, k1, k2 = run_counted(rk, lambda: backtest_cli.run(
+        [*BACKTEST_ARGS, "--seasons", *SEASONS, "--batched", *cache]))
+    prep_s = RECORDER.since(before).totals["backtest.prepare"]
     season_launches = k2
     log(f"[batched backtest] seasons {SEASONS}, {SEASON_SIMS} sims per race: races "
         f"{batched['n_races']}; pole Brier {batched['pole_brier']:.6f}, win Brier "
@@ -1022,7 +1021,7 @@ def xla_cli_phase(main_dist, batched_2024) -> None:
     dist = np.array([[results["full_distributions"][d].get(p + 1, 0.0) for p in range(20)]
                      for d in drivers])
     tv = tv_max(dist, main_dist)
-    sim_s = timers.totals["simulate (Monte Carlo)"]
+    sim_s = timers.totals["weekend.simulate"]
     log(f"[xla weekend] --engine xla, {XLA_WEEKEND_SIMS} sims: lap-engine calls {calls}, K1 "
         f"launches {k1}, K2 {k2}; simulate {sim_s:.3f} s ({XLA_WEEKEND_SIMS / sim_s:,.0f} sims/s); "
         f"max per-driver TV vs K1's 1,048,576-sim weekend {tv:.4f} (bound {ENGINE_TV}); "
@@ -1224,7 +1223,7 @@ def bayes_phase(dev, design, cpu_run) -> dict:
     from monte_carlo_gp_torch.models.predictor import F1Predictor
     from monte_carlo_gp_torch.ops import hmc_kernel as H
     from monte_carlo_gp_torch.ops import race_kernel as rk
-    from monte_carlo_gp_torch.utils.profiling import Phase, timed_calls
+    from monte_carlo_gp_torch.utils.profiling import RECORDER
     from monte_carlo_gp_torch.validate import hmc
 
     t0 = time.perf_counter()
@@ -1232,14 +1231,14 @@ def bayes_phase(dev, design, cpu_run) -> dict:
                             device=dev, quali_model="bayesian")
     model = predictor._bayes_model
     iters = model.num_warmup + model.num_samples
-    timers = Phase()
-    with timed_calls(B, "sample_posterior", timers):
-        H.hmc_stage.launches = H.hmc_transition.launches = H.hmc_logp.launches = 0
-        B.transition_replays = 0
-        plan, prepare_ms = plain_ms_of(lambda: predictor.prepare_weekend(2024, "Bahrain"))
-        launches = (H.hmc_stage.launches, H.hmc_transition.launches, H.hmc_logp.launches,
-                    B.transition_replays)
-    fit_s = timers.totals["sample_posterior"]
+    before = RECORDER.copy()
+    H.hmc_stage.launches = H.hmc_transition.launches = H.hmc_logp.launches = 0
+    B.transition_replays = 0
+    plan, prepare_ms = plain_ms_of(lambda: predictor.prepare_weekend(2024, "Bahrain"))
+    launches = (H.hmc_stage.launches, H.hmc_transition.launches, H.hmc_logp.launches,
+                B.transition_replays)
+    fit_spans = RECORDER.since(before).totals
+    fit_s = sum(fit_spans[k] for k in ("fit.design", "fit.chains", "fit.posterior"))
     post = model._posterior
     if not all(np.array_equal(getattr(post.design, f), getattr(design, f))
                for f in design.__dataclass_fields__):
@@ -1682,10 +1681,16 @@ def prebuild_phase() -> dict:
             "k1_launches": event["k1_launches"], "k2_launches": event["k2_launches"]}
 
 
+# weekend.prepare and its children, in the order they run in a CLI weekend
+PREPARE_SPANS = ("weekend.prepare", "weekend.elo", "weekend.archive", "weekend.session",
+                 "weekend.quali", "weekend.practice", "weekend.params")
+
+
 def trace_phase(dev) -> dict:
     """Phase (e): the main path's weekend through the CLI with `--trace DIR`
     and without, in this process: bitwise equal results, a trace file that
-    holds K1 as a device event, the device's busy share of the weekend and
+    holds K1 as a device event inside the `weekend.simulate` range and the
+    prepare's spans as ranges, the device's busy share of the weekend and
     K1's device time from the trace (`device_times_us`)."""
     from monte_carlo_gp_torch.__main__ import run as run_cli
     from monte_carlo_gp_torch.ops import race_kernel as rk
@@ -1723,7 +1728,7 @@ def trace_phase(dev) -> dict:
     kernel_us, device_us = profiling.device_times_us(t.profile)
     top = ", ".join(f"{name[:40]} {us / 1e3:.3f} ms" for name, us in
                     profiling.device_time_by_name(t.profile))
-    weekend_s = timers.totals["prepare (data + Elo + features)"] + timers.totals["simulate (Monte Carlo)"]
+    weekend_s = timers.totals["weekend.prepare"] + timers.totals["weekend.simulate"]
     busy = device_us / 1e6 / weekend_s
     log(f"[trace] --trace {trace_dir.name}/: {t.path.name}, {t.path.stat().st_size:,} bytes, "
         f"{t.device_events} device events, {len(k1_events)} K1 kernel event(s); K1 launches {k1} "
@@ -1731,10 +1736,20 @@ def trace_phase(dev) -> dict:
         f"ms device work; the weekend (prepare + simulate) {weekend_s:.3f} s, device busy "
         f"{100 * busy:.2f}%; device time by event: {top}; traced and untraced results bitwise equal: {same}; wall {wall:.2f} s; "
         f"phase {time.perf_counter() - t0:.1f} s")
+    # the program's spans are ranges on the kernels' timeline, K1 inside the simulate span
+    ranges = {e["name"]: e for e in events if e.get("cat") == "user_annotation"}
+    sim = ranges.get("weekend.simulate")
+    k1_inside = bool(sim and k1_events) and all(
+        sim["ts"] <= e["ts"] and e["ts"] + e["dur"] <= sim["ts"] + sim["dur"] for e in k1_events)
+    spans = [name for name in PREPARE_SPANS if name in ranges]
+    log(f"[trace spans] {spans} in the trace; K1 inside weekend.simulate: {k1_inside}")
     if not same:
         raise AssertionError("the traced weekend's result differs from the untraced one")
     if (k1, k2, k1_off) != (1, 0, 1) or not k1_events or kernel_us <= 0:
         raise AssertionError("the trace does not hold K1 as a device event")
+    if spans != list(PREPARE_SPANS) or not k1_inside:
+        raise AssertionError("the trace does not hold the prepare spans, or K1 outside "
+                             "weekend.simulate")
     return {"k1_launches": k1, "k1_device_ms": kernel_us / 1e3, "device_ms": device_us / 1e3,
             "busy_share": busy, "trace_bytes": t.path.stat().st_size}
 
@@ -1864,8 +1879,8 @@ def main() -> None:
     sharded_launches = rk.race_counts_sharded.launches
     dist = np.array([[results["full_distributions"][d].get(p + 1, 0.0) for p in range(20)]
                      for d in plan.drivers])
-    prep_s = timers.totals["prepare (data + Elo + features)"]
-    sim_s = timers.totals["simulate (Monte Carlo)"]
+    prep_s = timers.totals["weekend.prepare"]
+    sim_s = timers.totals["weekend.simulate"]
     log(f"[main path] K1 launches {launches} through {sharded_launches} call(s) of the sharded "
         f"entry on the one-shard default mesh, K2 {k2}; prepare {prep_s:.3f} s; simulate "
         f"{sim_s:.3f} s ({MAIN_SIMS / sim_s:,.0f} sims/s); wall {wall:.2f} s; "

@@ -102,7 +102,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--timings", action="store_true",
-        help="Print per-phase wall-clock timings",
+        help="Print the span tree (count, total and self seconds) and the frame counters",
     )
     return parser
 
@@ -129,11 +129,12 @@ def build_predictor(args):
 
 
 def run(argv: list[str] | None = None):
-    """Run the CLI on `argv`; returns (result dict, phase timers), the result
-    being None for --build-cache."""
-    from monte_carlo_gp_torch.utils.profiling import Phase, TraceError, phase_report, trace
+    """Run the CLI on `argv`; returns (result dict, the spans and counters
+    this run added to the process's recorder), the result being None for
+    --build-cache."""
+    from monte_carlo_gp_torch.utils.profiling import RECORDER, TraceError, phase_report, trace
 
-    timers = Phase()
+    before = RECORDER.copy()
     parser = build_parser()
     args = parser.parse_args(argv)
 
@@ -151,7 +152,7 @@ def run(argv: list[str] | None = None):
         n = predictor.data_loader.build_cache(seasons)
         print(f"Cached {n} session artifacts for seasons {seasons} "
               f"under {args.cache_dir}")
-        return None, timers
+        return None, RECORDER.since(before)
 
     print(f"\n{'='*60}")
     print(f"F1 Race Prediction: {args.season} {args.race}")
@@ -166,14 +167,12 @@ def run(argv: list[str] | None = None):
         builds_kernel = not race_kernel.is_built()
     try:
         with trace(args.trace, predictor.device) as traced:
-            with timers("prepare (data + Elo + features)"):
-                plan = predictor.prepare_weekend(
-                    season=args.season,
-                    race=args.race,
-                    prediction_point=args.prediction_point,
-                )
-            with timers("simulate (Monte Carlo)"):
-                probs = predictor.simulate_plan(plan, args.simulations, args.seed)
+            plan = predictor.prepare_weekend(
+                season=args.season,
+                race=args.race,
+                prediction_point=args.prediction_point,
+            )
+            probs = predictor.simulate_plan(plan, args.simulations, args.seed)
             results = predictor.assemble_result(plan, probs)
     except ValueError as e:
         from monte_carlo_gp_torch.models.safety import (
@@ -199,10 +198,11 @@ def run(argv: list[str] | None = None):
         sys.exit(f"Error: {e}")
     if traced is not None and traced.path is not None:
         print(f"Trace: {traced.path} ({traced.device_events} device events)")
+    timers = RECORDER.since(before)
     if args.timings:
         print()
         print(phase_report(timers))
-        sim_t = timers.totals.get("simulate (Monte Carlo)", 0.0)
+        sim_t = timers.totals.get("weekend.simulate", 0.0)
         if sim_t > 0.0:  # absent when --safe degraded before simulating
             sims_per_s = args.simulations / sim_t
             note = " (includes the kernel build)" if builds_kernel else ""

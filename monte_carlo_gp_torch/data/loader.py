@@ -27,6 +27,8 @@ from pathlib import Path
 import numpy as np
 import pandas as pd
 
+from monte_carlo_gp_torch.utils.profiling import count
+
 DEFAULT_WEATHER = {
     "air_temp": 25,
     "track_temp": 35,
@@ -156,10 +158,15 @@ _FRAME_CACHE_MAX = 1024
 
 
 def _read_parquet_cached(p: Path) -> pd.DataFrame:
+    """The frame of parquet file `p`, read at most once per (path, mtime,
+    size); counts `frames.read` and `frames.hit`."""
     st = p.stat()
     key = (str(p), st.st_mtime_ns, st.st_size)
     df = _FRAME_CACHE.get(key)
-    if df is None:
+    if df is not None:
+        count("frames.hit")
+    else:
+        count("frames.read")
         df = pd.read_parquet(p)
         if len(_FRAME_CACHE) >= _FRAME_CACHE_MAX:
             _FRAME_CACHE.pop(next(iter(_FRAME_CACHE)))

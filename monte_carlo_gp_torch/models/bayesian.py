@@ -50,6 +50,7 @@ fit): the yardstick the kernel is timed against.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import pandas as pd
@@ -64,6 +65,7 @@ from monte_carlo_gp_torch.ops import hmc_kernel
 # the plain version of a transition, which the CPU fit runs
 from monte_carlo_gp_torch.ops.hmc_kernel import hmc_transition_plain as _hmc_transition
 from monte_carlo_gp_torch.utils.logging import log_event
+from monte_carlo_gp_torch.utils.profiling import span
 
 # Prior scales.
 TEAM_SIGMA_SCALE = 0.5
@@ -485,11 +487,11 @@ def sample_posterior(
     launch raises `hmc_kernel.HMCKernelError`), on the CPU its plain version.
     `plain` runs the transitions eagerly without the wrapper on any device,
     the plain version the kernel is held to."""
-    def run(theta0, logp_fn, grad_fn, *schedule):
-        kernel = None if plain else kernel_design(design, theta0.device, (logp_fn, grad_fn))
-        return _run_chains(theta0, logp_fn, grad_fn, *schedule, kernel=kernel)
+    def runner(logp_fn, grad_fn, dev):
+        kernel = None if plain else kernel_design(design, dev, (logp_fn, grad_fn))
+        return functools.partial(_run_chains, kernel=kernel)
 
-    return _fit(design, num_chains, num_warmup, num_samples, num_leapfrog, seed, device, run)
+    return _fit(design, num_chains, num_warmup, num_samples, num_leapfrog, seed, device, runner)
 
 
 def sample_posterior_graphed(
@@ -506,42 +508,52 @@ def sample_posterior_graphed(
     counted in `transition_replays`), bitwise the `plain` fit: the yardstick
     the kernel is timed against. The CPU runs the transitions eagerly."""
     return _fit(design, num_chains, num_warmup, num_samples, num_leapfrog, seed, device,
-                _run_graphed)
+                lambda *_: _run_graphed)
 
 
 def _fit(design: QualiDesign, num_chains: int, num_warmup: int, num_samples: int,
-         num_leapfrog: int, seed: int, device, run) -> QualiPosterior:
-    """`sample_posterior` with its schedule run by `run(theta0, logp_fn,
-    grad_fn, n_warmup, n_leapfrog, draws) -> (samples, accept)`
-    (`_run_chains`, `_run_graphed`); the sampling stage takes the draws that
-    remain after warmup, `num_samples` of them."""
+         num_leapfrog: int, seed: int, device, runner) -> QualiPosterior:
+    """`sample_posterior` with its schedule run by `runner(logp_fn, grad_fn,
+    device)`, a `run(theta0, logp_fn, grad_fn, n_warmup, n_leapfrog, draws)
+    -> (samples, accept)` (`_run_chains`, `_run_graphed`); the sampling
+    stage takes the draws that remain after warmup, `num_samples` of them.
+    Spans: `fit.design` (the log posterior and what the runner reads of the
+    design, the kernel's statistics), `fit.chains` (the draws, their upload,
+    the schedule's launches and the readback), `fit.posterior` (the
+    constrained draws)."""
     dev = torch.device(device)
-    logp_fn, grad_fn, sizes = make_log_posterior(design, dev)
-    dim = _param_dim(design)
-    # Jittered inits: raws near 0, log-scales near log(prior scale / 2).
-    offsets = np.zeros(dim, np.float32)
-    offsets[1:_N_SCALAR] = np.log(np.asarray(_PRIOR_SCALES, np.float32) / 2)
-    w1 = max(num_warmup // 2, 1)
-    n_iters = w1 + max(num_warmup - w1, 1) + num_samples
-    init, draws = chain_draws(seed, num_chains, dim, n_iters)
-    with torch.inference_mode():  # no autograd bookkeeping on ~10^5 small ops
-        theta0 = (torch.from_numpy(offsets) + 0.1 * init).to(dev)
-        draws = tuple(a.to(dev) for a in draws)
-        samples, accept = run(theta0, logp_fn, grad_fn, int(num_warmup), int(num_leapfrog), draws)
-        raw = samples.transpose(0, 1).cpu().numpy()  # (chains, samples, dim)
-        accept = accept.cpu().numpy()
-    con = constrain(torch.from_numpy(raw.reshape(num_chains * num_samples, dim)), sizes)
-    return QualiPosterior(
-        design=design,
-        team_effect=con["team_effect"].numpy(),
-        driver_effect=con["driver_effect"].numpy(),
-        circuit_effect=con["circuit_effect"].numpy(),
-        team_mu=con["team_mu"].numpy(),
-        driver_sigma=con["driver_sigma"].numpy(),
-        sigma=con["sigma"].numpy(),
-        accept_rate=accept,
-        raw=raw,
-    )
+    with span("fit.design"):
+        logp_fn, grad_fn, sizes = make_log_posterior(design, dev)
+        with torch.inference_mode():
+            run = runner(logp_fn, grad_fn, dev)
+    with span("fit.chains"):
+        dim = _param_dim(design)
+        # Jittered inits: raws near 0, log-scales near log(prior scale / 2).
+        offsets = np.zeros(dim, np.float32)
+        offsets[1:_N_SCALAR] = np.log(np.asarray(_PRIOR_SCALES, np.float32) / 2)
+        w1 = max(num_warmup // 2, 1)
+        n_iters = w1 + max(num_warmup - w1, 1) + num_samples
+        init, draws = chain_draws(seed, num_chains, dim, n_iters)
+        with torch.inference_mode():  # no autograd bookkeeping on ~10^5 small ops
+            theta0 = (torch.from_numpy(offsets) + 0.1 * init).to(dev)
+            draws = tuple(a.to(dev) for a in draws)
+            samples, accept = run(theta0, logp_fn, grad_fn, int(num_warmup), int(num_leapfrog),
+                                  draws)
+            raw = samples.transpose(0, 1).cpu().numpy()  # (chains, samples, dim)
+            accept = accept.cpu().numpy()
+    with span("fit.posterior"):
+        con = constrain(torch.from_numpy(raw.reshape(num_chains * num_samples, dim)), sizes)
+        return QualiPosterior(
+            design=design,
+            team_effect=con["team_effect"].numpy(),
+            driver_effect=con["driver_effect"].numpy(),
+            circuit_effect=con["circuit_effect"].numpy(),
+            team_mu=con["team_mu"].numpy(),
+            driver_sigma=con["driver_sigma"].numpy(),
+            sigma=con["sigma"].numpy(),
+            accept_rate=accept,
+            raw=raw,
+        )
 
 
 def split_rhat(chains_samples: np.ndarray) -> np.ndarray:
@@ -651,15 +663,19 @@ class BayesianQualiModel:
         self._posterior: QualiPosterior | None = None
 
     def fit(self, laps: pd.DataFrame) -> QualiPosterior:
-        design = build_quali_design(laps)
-        posterior = sample_posterior(
-            design,
-            num_chains=self.num_chains,
-            num_warmup=self.num_warmup,
-            num_samples=self.num_samples,
-            seed=self.seed,
-            device=self.device,
-        )
+        """The posterior of the archive `laps` (the span `fit`, the
+        archive's design frame its own time, `sample_posterior`'s spans
+        inside it)."""
+        with span("fit"):
+            design = build_quali_design(laps)
+            posterior = sample_posterior(
+                design,
+                num_chains=self.num_chains,
+                num_warmup=self.num_warmup,
+                num_samples=self.num_samples,
+                seed=self.seed,
+                device=self.device,
+            )
         self._posterior = posterior
         self._token = laps.attrs.get("_mcgp_loader_token")
         log_event(

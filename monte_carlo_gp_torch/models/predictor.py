@@ -41,6 +41,7 @@ from monte_carlo_gp_torch.models.safety import InsufficientDataError
 from monte_carlo_gp_torch.ops.race_kernel import MAX_DRIVERS, run_monte_carlo_kernel_sharded
 from monte_carlo_gp_torch.parallel.mesh import Mesh, resolve_mesh, run_monte_carlo_sharded
 from monte_carlo_gp_torch.utils.logging import log_event
+from monte_carlo_gp_torch.utils.profiling import span
 
 # FP-session fallback chains per prediction point.
 SESSION_CHAINS: dict[str, list[str]] = {
@@ -282,22 +283,74 @@ class F1Predictor:
     ) -> WeekendPlan:
         """Everything up to (but not including) the Monte Carlo: data loads,
         Elo builds, features, practice extraction, SimParams assembly (on the
-        CPU)."""
+        CPU). Recorded as the span `weekend.prepare`, with one child per
+        phase: `weekend.elo`, `weekend.archive`, `weekend.session`,
+        `weekend.quali`, `weekend.practice`, `weekend.params`."""
+        with span("weekend.prepare"):
+            return self._prepare_weekend(
+                season, race, grid_penalties, circuit_info, prediction_point, actual_grid
+            )
+
+    def _prepare_weekend(
+        self, season, race, grid_penalties, circuit_info, prediction_point, actual_grid
+    ) -> WeekendPlan:
         grid_penalties = grid_penalties or {}
         circuit_info = circuit_info or self._get_circuit_info(race)
 
-        historical_seasons = self._build_elo(season)
+        with span("weekend.elo"):
+            historical_seasons = self._build_elo(season)
         # Features load once per loader clock, so feature inputs only see
         # races strictly before the one being predicted.
         loader_now = self.data_loader.now
         if historical_seasons and (
             not self._features_loaded or self._features_now != loader_now
         ):
-            self.feature_engine.load_historical_data(historical_seasons)
+            with span("weekend.archive"):
+                self.feature_engine.load_historical_data(historical_seasons)
             self._features_loaded = True
             self._features_now = loader_now
 
-        # FP data via fallback chain.
+        with span("weekend.session"):
+            fp_data, weather = self._practice_session(season, race, prediction_point)
+            drivers = fp_data["Driver"].unique().tolist()
+            # The weekend's driver→team assignment comes from the session
+            # frame; the static 2025 map is only the fallback for rows
+            # without a Team.
+            weekend_teams = self._teams_from_fp(fp_data, drivers)
+
+        with span("weekend.quali"):
+            quali_probs = self._quali_probs(
+                season, race, drivers, weekend_teams, grid_penalties,
+                prediction_point, actual_grid,
+            )
+
+        with span("weekend.practice"):
+            sim_inputs = self._practice_inputs(fp_data, drivers, race, weather,
+                                               circuit_info, prediction_point)
+
+        with span("weekend.params"):
+            params = self._make_params(
+                drivers=drivers,
+                quali_probs=quali_probs,
+                circuit_info=circuit_info,
+                **sim_inputs,
+            )
+        return WeekendPlan(
+            params=params,
+            total_laps=int(circuit_info.get("laps", 58)),
+            drivers=drivers,
+            quali_probs=quali_probs,
+            weather=weather,
+            prediction_point=prediction_point,
+            # an empty dict must not label a model-predicted grid as actual
+            grid_is_actual=bool(actual_grid)
+            and prediction_point in ("quali", "sprint"),
+        )
+
+    def _practice_session(self, season: int, race: str, prediction_point: str):
+        """(the first non-empty practice session of the point's fallback
+        chain, the race's weather); raises InsufficientDataError when every
+        session is empty."""
         fp_data = pd.DataFrame()
         for session in SESSION_CHAINS.get(prediction_point, DEFAULT_CHAIN):
             fp_data = self.data_loader.load_session(season, race, session)
@@ -308,12 +361,13 @@ class F1Predictor:
             raise InsufficientDataError(
                 f"No practice data available for {season} {race}"
             )
+        return fp_data, weather
 
-        drivers = fp_data["Driver"].unique().tolist()
-        # The weekend's driver→team assignment comes from the session frame;
-        # the static 2025 map is only the fallback for rows without a Team.
-        weekend_teams = self._teams_from_fp(fp_data, drivers)
-
+    def _quali_probs(self, season, race, drivers, weekend_teams, grid_penalties,
+                     prediction_point, actual_grid) -> dict[str, list[float]]:
+        """Each driver's qualifying position distribution: the actual grid,
+        or the qualifying model's (with opt-in rookie seeding first), then
+        the grid penalties."""
         # Rookie seeding (opt-in): drivers with no rated history get a
         # teammate-prior Elo, batched so two unrated teammates get
         # order-independent priors.
@@ -352,8 +406,14 @@ class F1Predictor:
                 quali_probs = self._predict_quali(drivers, quali_features)
         if grid_penalties:
             quali_probs = self._adjust_for_penalties(quali_probs, grid_penalties)
+        return quali_probs
 
-        # Practice-data extraction.
+    def _practice_inputs(self, fp_data, drivers, race, weather, circuit_info,
+                         prediction_point) -> dict:
+        """The Monte Carlo's per-driver inputs from the practice session and
+        the race features: pace (with team-trend and wet-skill
+        adjustments), tyre degradation, compound deltas, variance, DNF
+        rates, and the track condition; `_make_params`' keyword arguments."""
         base_pace = self._extract_race_pace(fp_data)
         tire_deg = self._extract_tire_deg(fp_data)
         dynamic_compounds = self._extract_tire_compound_deltas(fp_data)
@@ -389,29 +449,14 @@ class F1Predictor:
         if track_condition in ("damp", "wet"):
             for d in drivers:
                 base_pace[d] -= race_features[d].get("wet_performance", 0) * 0.5
-
-        params = self._make_params(
-            drivers=drivers,
-            quali_probs=quali_probs,
-            base_pace=base_pace,
-            tire_deg=tire_deg,
-            driver_variance=driver_variance,
-            driver_dnf_rates=driver_dnf_rates,
-            circuit_info=circuit_info,
-            dynamic_compounds=dynamic_compounds,
-            track_condition=track_condition,
-        )
-        return WeekendPlan(
-            params=params,
-            total_laps=total_laps,
-            drivers=drivers,
-            quali_probs=quali_probs,
-            weather=weather,
-            prediction_point=prediction_point,
-            # an empty dict must not label a model-predicted grid as actual
-            grid_is_actual=bool(actual_grid)
-            and prediction_point in ("quali", "sprint"),
-        )
+        return {
+            "base_pace": base_pace,
+            "tire_deg": tire_deg,
+            "driver_variance": driver_variance,
+            "driver_dnf_rates": driver_dnf_rates,
+            "dynamic_compounds": dynamic_compounds,
+            "track_condition": track_condition,
+        }
 
     def simulate_plan(
         self,
@@ -442,7 +487,14 @@ class F1Predictor:
         seed = 0 if seed is None else seed
         engine = resolve_engine(engine) if engine else self.engine
         mesh = resolve_mesh(mesh if mesh is not None else self.mesh, self.device)
-        params = plan.params.to(self.device)
+        with span("weekend.simulate"):
+            probs = self._simulate(plan, n, seed, engine, mesh)
+        self.last_effective_sims = n
+        return probs
+
+    def _simulate(self, plan: WeekendPlan, n: int, seed: int, engine: str, mesh) -> np.ndarray:
+        with span("simulate.upload"):
+            params = plan.params.to(self.device)
         if engine == "pallas" and params.n_drivers > MAX_DRIVERS:
             log_event(
                 "engine_fallback_eager",
@@ -450,15 +502,21 @@ class F1Predictor:
                 n_drivers=params.n_drivers,
             )
             engine = "xla"
-        if engine == "pallas":
-            probs = run_monte_carlo_kernel_sharded(params, seed, n, plan.total_laps, mesh)
-        else:
-            probs = run_monte_carlo_sharded(params, seed, n, plan.total_laps, mesh)
-        self.last_effective_sims = n
-        return probs.cpu().numpy()
+        with span("simulate.launch"):
+            if engine == "pallas":
+                probs = run_monte_carlo_kernel_sharded(params, seed, n, plan.total_laps, mesh)
+            else:
+                probs = run_monte_carlo_sharded(params, seed, n, plan.total_laps, mesh)
+        with span("simulate.readback"):
+            return probs.cpu().numpy()
 
     def assemble_result(self, plan: WeekendPlan, probs: np.ndarray) -> dict:
-        """The result dict from a (D, D) finish-probability matrix."""
+        """The result dict from a (D, D) finish-probability matrix (the span
+        `weekend.assemble`)."""
+        with span("weekend.assemble"):
+            return self._assemble(plan, probs)
+
+    def _assemble(self, plan: WeekendPlan, probs: np.ndarray) -> dict:
         drivers = plan.drivers
         quali_probs = plan.quali_probs
         n = len(drivers)

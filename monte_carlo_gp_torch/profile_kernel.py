@@ -327,25 +327,24 @@ def new_predictor(dev, name: str):
 def profile_weekend(dev) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
-    from monte_carlo_gp_torch.utils.profiling import Phase, device_times_us
+    from monte_carlo_gp_torch.utils.profiling import RECORDER, device_times_us
 
     # warm-up on its own predictor: the kernel build and load and the CUDA
     # context stay out of the profile; the data and Elo caches do not carry over
     warm = new_predictor(dev, "warm-up")
     warm.simulate_plan(warm.prepare_weekend(SEASON, RACE), 4096, seed=0)
     weekend = new_predictor(dev, "weekend")
-    timers = Phase()
+    before = RECORDER.copy()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        with timers("prepare"):
-            plan = weekend.prepare_weekend(SEASON, RACE)
-        with timers("simulate"):
-            weekend.simulate_plan(plan, WEEKEND_SIMS, seed=0)
+        plan = weekend.prepare_weekend(SEASON, RACE)
+        weekend.simulate_plan(plan, WEEKEND_SIMS, seed=0)
     kernel_us, device_us = device_times_us(prof)
-    wall_s = timers.totals["prepare"] + timers.totals["simulate"]
+    spans = RECORDER.since(before).totals
+    wall_s = spans["weekend.prepare"] + spans["weekend.simulate"]
     return {
         "sims": WEEKEND_SIMS,
-        "prepare_s": timers.totals["prepare"],
-        "simulate_s": timers.totals["simulate"],
+        "prepare_s": spans["weekend.prepare"],
+        "simulate_s": spans["weekend.simulate"],
         "kernel_device_ms": kernel_us / 1e3,
         "all_device_ms": device_us / 1e3,
         "busy_share": device_us / 1e6 / wall_s,
@@ -359,16 +358,15 @@ def profile_season_backtest(dev) -> dict:
     small season launch that loads the season kernel."""
     from torch.profiler import ProfilerActivity, profile
 
-    from monte_carlo_gp_torch.utils.profiling import Phase, device_times_us, timed_calls
+    from monte_carlo_gp_torch.utils.profiling import RECORDER, device_times_us
     from monte_carlo_gp_torch.validate import backtest as bt
 
     warm = new_predictor(dev, "season-warm-up")
     plans, _ = bt.prepare_season_plans(warm, SEASON, verbose=False)
     bt.simulate_season_plans(warm, plans[:2], SEASON_SEED, 64)
     torch.cuda.synchronize()
-    timers = Phase()
-    with timed_calls(bt, "prepare_season_plans", timers), \
-            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    before = RECORDER.copy()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         result = bt.backtest_model_batched(
             lambda: new_predictor(dev, "season"), [SEASON], n_simulations=BACKTEST_SIMS,
@@ -381,7 +379,7 @@ def profile_season_backtest(dev) -> dict:
         "sims_per_race": BACKTEST_SIMS,
         "n_races": result["n_races"],
         "wall_s": wall_s,
-        "prepare_s": timers.totals["prepare_season_plans"],
+        "prepare_s": RECORDER.since(before).totals["backtest.prepare"],
         "season_kernel_device_ms": kernel_us / 1e3,
         "all_device_ms": device_us / 1e3,
         "busy_share": device_us / 1e6 / wall_s,

@@ -15,7 +15,13 @@ Endpoints:
     GET  /          HTML dashboard (inline CSS/JS, no outside resource)
     GET  /healthz   liveness, the service's device type and the card's name
     GET  /stats     request counters (ok / fallbacks / rejected / errors,
-                    plan-cache hits / misses / evictions, outages)
+                    plan-cache hits / misses / evictions, outages), plus
+                    "spans": the process's span tree under its serve.* spans,
+                    {name: {"count", "total_s", "self_s", "children": {...}}}
+                    (serve.handle: a POST; its serve.read, serve.predict with
+                    serve.plan, the plan-cache lookup or prepare, and the
+                    prepare's weekend.* spans beneath, serve.reply), and
+                    "frames": the parquet frame cache's {"read", "hit"}
     POST /predict   JSON request -> the predict_weekend result dict plus a
                     "server" block; the same seed gives the same
                     probabilities, bitwise
@@ -63,6 +69,7 @@ from monte_carlo_gp_torch.models.safety import (
 )
 from monte_carlo_gp_torch.utils.logging import get_logger, log_event
 from monte_carlo_gp_torch.utils.outage import is_backend_outage, probe_backend_once
+from monte_carlo_gp_torch.utils.profiling import RECORDER, span
 
 __all__ = ["PredictionService", "ServeError", "dashboard_html"]
 
@@ -307,7 +314,11 @@ class PredictionService:
         """The prepared weekend of a bare request, cached per (season, race,
         point) in the bounded LRU (fresh by TTL when `plan_ttl_s` is set).
         The caller holds `self._lock`. Raises InsufficientDataError when the
-        data layer is empty."""
+        data layer is empty. The span `serve.plan`."""
+        with span("serve.plan"):
+            return self._cached_plan(season, race, prediction_point)
+
+    def _cached_plan(self, season: int, race: str, prediction_point: str):
         key = (season, race, prediction_point)
         entry = self._plans.get(key)
         if entry is not None:
@@ -670,28 +681,46 @@ def make_handler(service: PredictionService):
                     **outage,
                 })
             elif self.path == "/stats":
-                self._reply(200, dict(service.stats))
+                frames = RECORDER.counters
+                self._reply(200, {
+                    **service.stats,
+                    "spans": RECORDER.tree("serve."),
+                    "frames": {"read": frames.get("frames.read", 0),
+                               "hit": frames.get("frames.hit", 0)},
+                })
             else:
                 self._reply(404, {"error": f"no such endpoint: {self.path}"})
 
         def do_POST(self):  # noqa: N802 (http.server API)
+            """One POST, the span `serve.handle` (a request id of its own)
+            with `serve.read`, `serve.predict` and `serve.reply` inside."""
+            with span("serve.handle", request=True):
+                self._post()
+
+        def _reply_span(self, status: int, payload: dict):
+            with span("serve.reply"):
+                self._reply(status, payload)
+
+        def _post(self):
             if self.path not in ("/predict", "/invalidate"):
-                self._reply(404, {"error": f"no such endpoint: {self.path}"})
+                self._reply_span(404, {"error": f"no such endpoint: {self.path}"})
                 return
             try:
-                length = int(self.headers.get("Content-Length", 0))
-                if length > MAX_BODY_BYTES:
-                    self._reply(413, {
-                        "error": f"request body too large ({length} > {MAX_BODY_BYTES} bytes)",
-                    })
-                    return
-                request = json.loads(self.rfile.read(length) or b"{}")
+                with span("serve.read"):
+                    length = int(self.headers.get("Content-Length", 0))
+                    if length <= MAX_BODY_BYTES:
+                        request = json.loads(self.rfile.read(length) or b"{}")
             except ValueError as e:  # a bad Content-Length or body (JSONDecodeError)
-                self._reply(400, {"error": f"invalid JSON body: {e}"})
+                self._reply_span(400, {"error": f"invalid JSON body: {e}"})
+                return
+            if length > MAX_BODY_BYTES:
+                self._reply_span(413, {
+                    "error": f"request body too large ({length} > {MAX_BODY_BYTES} bytes)",
+                })
                 return
             if self.path == "/invalidate":
                 if not isinstance(request, dict):
-                    self._reply(400, {"error": "body must be a JSON object"})
+                    self._reply_span(400, {"error": "body must be a JSON object"})
                     return
                 try:
                     season = request.get("season")
@@ -701,12 +730,13 @@ def make_handler(service: PredictionService):
                     point = request.get("prediction_point")
                     point = None if point is None else str(point)
                 except (TypeError, ValueError) as e:
-                    self._reply(400, {"error": f"invalid field: {e}"})
+                    self._reply_span(400, {"error": f"invalid field: {e}"})
                     return
-                self._reply(200, {"evicted": service.invalidate(season, race, point)})
+                self._reply_span(200, {"evicted": service.invalidate(season, race, point)})
                 return
-            status, payload = service.predict(request)
-            self._reply(status, payload)
+            with span("serve.predict"):
+                status, payload = service.predict(request)
+            self._reply_span(status, payload)
 
     return Handler
 

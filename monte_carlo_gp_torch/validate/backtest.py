@@ -41,6 +41,7 @@ from monte_carlo_gp_torch.ops.race_kernel import MAX_DRIVERS, run_monte_carlo_se
 from monte_carlo_gp_torch.parallel.mesh import Mesh, resolve_mesh
 from monte_carlo_gp_torch.parallel.sharded import simulate_season_sharded
 from monte_carlo_gp_torch.utils.logging import log_event
+from monte_carlo_gp_torch.utils.profiling import span
 from monte_carlo_gp_torch.validate.metrics import (
     brier_score,
     calibration_analysis,
@@ -343,19 +344,21 @@ def score_season_plans(predictor, plans, acts, probs) -> tuple[list, list]:
     and the parameter sweep (`validate/tune.py`), so any change to the
     padded-matrix slicing or the kept probability dicts lands once. Each
     race's histogram is sliced to its real field (`p[:d, :d]`: the season
-    batch pads the driver axis to the widest field) before assembly."""
+    batch pads the driver axis to the widest field) before assembly. The
+    span `backtest.score`."""
     predictions, actuals = [], []
-    for plan, act, p in zip(plans, acts, probs):
-        d = len(plan.drivers)
-        pred = predictor.assemble_result(plan, p[:d, :d])
-        predictions.append(
-            {
-                "pole_probabilities": pred["pole_probabilities"],
-                "win_probabilities": pred["win_probabilities"],
-                "podium_probabilities": pred["podium_probabilities"],
-            }
-        )
-        actuals.append(act)
+    with span("backtest.score"):
+        for plan, act, p in zip(plans, acts, probs):
+            d = len(plan.drivers)
+            pred = predictor.assemble_result(plan, p[:d, :d])
+            predictions.append(
+                {
+                    "pole_probabilities": pred["pole_probabilities"],
+                    "win_probabilities": pred["win_probabilities"],
+                    "podium_probabilities": pred["podium_probabilities"],
+                }
+            )
+            actuals.append(act)
     return predictions, actuals
 
 
@@ -370,26 +373,30 @@ def prepare_season_plans(
     to its date), prepare the weekend plan, fetch the actual results, and
     apply the actual-result Elo updates — the leakage-correct prep both the
     batched backtest and the parameter sweep (`validate/tune.py`) run before
-    any device work. Returns ([WeekendPlan], [actuals dict])."""
-    loader = predictor.data_loader
-    plans, acts = [], []
-    cutoffs = _race_cutoffs(loader, season)
-    races = get_races(loader, season)
-    for race_idx, race in enumerate(races):
-        try:
-            _pin(loader, cutoffs, race_idx, pin_clock)
-            plan = predictor.prepare_weekend(season, race)
-            act = get_actual_results(loader, season, race)
-            plans.append(plan)
-            acts.append(act)
-            _apply_actual_elo(
-                predictor, act, reference_compat_elo_noop,
-                race_idx=race_idx, total_races=len(races),
-            )
-        except Exception as e:  # noqa: BLE001
-            log_event("backtest_skip", season=season, race=race, error=str(e))
-            if verbose:
-                print(f"Skipping {season} {race}: {e}")
+    any device work. Returns ([WeekendPlan], [actuals dict]). The span
+    `backtest.prepare`, each race's `weekend.prepare` and `backtest.actuals`
+    (the actuals and their Elo updates) inside it."""
+    with span("backtest.prepare"):
+        loader = predictor.data_loader
+        plans, acts = [], []
+        cutoffs = _race_cutoffs(loader, season)
+        races = get_races(loader, season)
+        for race_idx, race in enumerate(races):
+            try:
+                _pin(loader, cutoffs, race_idx, pin_clock)
+                plan = predictor.prepare_weekend(season, race)
+                with span("backtest.actuals"):
+                    act = get_actual_results(loader, season, race)
+                    plans.append(plan)
+                    acts.append(act)
+                    _apply_actual_elo(
+                        predictor, act, reference_compat_elo_noop,
+                        race_idx=race_idx, total_races=len(races),
+                    )
+            except Exception as e:  # noqa: BLE001
+                log_event("backtest_skip", season=season, race=race, error=str(e))
+                if verbose:
+                    print(f"Skipping {season} {race}: {e}")
     return plans, acts
 
 
@@ -421,7 +428,16 @@ def simulate_season_plans(
         (d, d);
       * "xla": the lap-engine season, `parallel.sharded.simulate_season_sharded`,
         split over the mesh; every array is (D, D).
+
+    The span `backtest.simulate`, with `simulate.readback` (the copy back,
+    where the host waits for the device) on the season routes.
     """
+    with span("backtest.simulate"):
+        return _simulate_season(predictor, plans, season_seed, n_simulations, params_list,
+                                engine, mesh)
+
+
+def _simulate_season(predictor, plans, season_seed, n_simulations, params_list, engine, mesh):
     if params_list is None:
         params_list = [p.params for p in plans]
     n = int(n_simulations)
@@ -445,7 +461,8 @@ def simulate_season_plans(
             [p.to(predictor.device) for p in params_list], laps, season_seed, n, mesh=mesh
         )
     predictor.last_effective_sims = n
-    return list(probs.cpu().numpy())
+    with span("simulate.readback"):
+        return list(probs.cpu().numpy())
 
 
 def _apply_actual_elo(

@@ -399,22 +399,21 @@ def test_cli_refuses_what_it_cannot_run(args, says, tmp_path):
     assert not (tmp_path / "f.jsonl").exists()
 
 
-def test_timed_calls_times_a_module_function_and_restores_it():
-    """The season measurements time `prepare_season_plans` inside the
-    backtest by wrapping the module's function for the length of a block."""
-    from monte_carlo_gp_torch.utils.profiling import Phase, timed_calls
+def test_backtest_prepare_span_counts_one_call_per_prepare_season_plans():
+    """The season measurements read `prepare_season_plans`' time from the
+    recorder's `backtest.prepare` span: one count per call, a call that
+    raises included."""
+    from monte_carlo_gp_torch.utils.profiling import RECORDER
 
-    prepare = tbt.prepare_season_plans
-    timers = Phase()
-    with timed_calls(tbt, "prepare_season_plans", timers):
-        assert tbt.prepare_season_plans is not prepare
-        with pytest.raises(AttributeError):  # the wrapped call raises through
-            tbt.prepare_season_plans(None, SEASON)
-        tbt.prepare_season_plans(SimpleNamespace(data_loader=SimpleNamespace(
-            past_events=lambda season: [])), SEASON)
-    assert tbt.prepare_season_plans is prepare
-    assert timers.counts == {"prepare_season_plans": 2}
-    assert timers.totals["prepare_season_plans"] >= 0.0
+    before = RECORDER.copy()
+    with pytest.raises(AttributeError):  # the call raises through its span
+        tbt.prepare_season_plans(None, SEASON)
+    tbt.prepare_season_plans(SimpleNamespace(data_loader=SimpleNamespace(
+        past_events=lambda season: [])), SEASON)
+    added = RECORDER.since(before)
+    assert added.counts == {"backtest.prepare": 2}
+    assert added.totals["backtest.prepare"] >= 0.0
+    assert added.paths[("backtest.prepare",)][0] == 2
 
 
 def test_checkpoint_lines_are_json_records(sequential_run):

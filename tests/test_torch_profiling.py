@@ -27,7 +27,7 @@ torch.set_num_threads(2)
 ROOT = Path(__file__).resolve().parents[1]
 WEEKEND = ["--race", "Bahrain", "--season", "2024", "--synthetic", "--device", "cpu",
            "--simulations", "512", "--seed", "0"]
-PHASES = ("prepare (data + Elo + features)", "simulate (Monte Carlo)")
+PHASES = ("weekend.prepare", "weekend.elo", "weekend.simulate", "simulate.launch")
 
 
 def trace_events(path) -> list[dict]:
@@ -161,8 +161,8 @@ def test_device_times_us_and_device_events_read_a_profile():
     prof = SimpleNamespace(
         key_averages=lambda: [
             avg("void race_kernel<1>(...)", 60_000.0, cuda),
-            avg("simulate (Monte Carlo)", 60_000.0, cpu, True),
-            avg("simulate (Monte Carlo)", 60_100.0, cuda, True),
+            avg("weekend.simulate", 60_000.0, cpu, True),
+            avg("weekend.simulate", 60_100.0, cuda, True),
             avg("void season_kernel<1>(...)", 300.0, cuda),
             avg("Memcpy DtoH (Device -> Pageable)", 5.0, cuda),
             avg("aten::copy_", 5.0, cpu),

@@ -60,6 +60,11 @@ that each went through its kernel:
     identical and equal to the weekend through F1Predictor in this process
     (one K1 launch); (c) the gbm model: a weekend where scikit-learn
     imports, else the CLI's error naming it;
+  * (g) the Bayesian walk-forward of the 2024 season at the default budget
+    with its 20 fits run together (one launch per stage and distinct S for
+    all of them, `prepare_season_plans`' route) and race by race: the plans
+    equal field by field, and each stage's device time of both, from a
+    profile;
   * the last modules of the port: (d) `python -m
     monte_carlo_gp_torch.precompile --season-races 20` in a child with a
     fresh MCGP_COMPILE_CACHE (the cold build of both libraries, one K1 and
@@ -94,6 +99,7 @@ import io
 import json
 import math
 import os
+import re
 import shutil
 import socket
 import subprocess
@@ -1437,6 +1443,90 @@ def bayes_phase(dev, design, cpu_run) -> dict:
             "result": result, "kernel": kernel}
 
 
+def batched_fits_phase(dev) -> dict:
+    """(g) The Bayesian walk-forward of the synthetic 2024 season on the card
+    at the default budget (4 chains, 1000 + 1000, 48 leapfrog steps, seed
+    42), under a profile: race by race (`prepare_weekend`, its fit's three
+    stage launches inside) and, twice, as `prepare_season_plans` takes it
+    (the season's fits together: three launches per distinct S). The plans
+    equal field by field, the batched seasons' launches 3 x the distinct S,
+    and each stage's device time from the profile (`hmc_kernel<S>` and
+    `hmc_kernel_batch<S>` per launch): the batched launches against the sum
+    of the per-fit launches of the same stage. Returns the readings for the
+    HMC kernel's row."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from monte_carlo_gp_torch.data.synthetic import SyntheticBackend
+    from monte_carlo_gp_torch.models.predictor import F1Predictor
+    from monte_carlo_gp_torch.ops import hmc_kernel as H
+    from monte_carlo_gp_torch.utils import profiling
+    from monte_carlo_gp_torch.validate import backtest as bt
+
+    t0 = time.perf_counter()
+
+    def season(batch: bool):
+        p = F1Predictor(cache_dir=SMOKE_CACHE / "batched_fits", backend=SyntheticBackend(seed=2718),
+                        device=dev, quali_model="bayesian")
+        H.hmc_stage.launches = 0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            if batch:
+                plans, _ = bt.prepare_season_plans(p, 2024, verbose=False)
+            else:
+                plans, _ = bt._prepare_race_by_race(p, 2024, False, True, False)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        launches = sorted((e for e in prof.events()
+                           if e.device_type == torch.autograd.DeviceType.CUDA
+                           and "hmc_kernel" in e.name), key=lambda e: e.time_range.start)
+        # stage j of the schedule: the j-th launch of each fit (race by race),
+        # or the j-th launch of each S (together)
+        per = max(len(launches) // 3, 1)
+        per_stage = [0.0, 0.0, 0.0]
+        for i, e in enumerate(launches):
+            per_stage[min(i // per, 2) if batch else i % 3] += e.time_range.elapsed_us() / 1e3
+        # S, the kernel's template argument, from each launch's name
+        slots = sorted({int(m[1]) for e in launches
+                        if (m := re.search(r"hmc_kernel(?:_batch)?<(\d+)>", e.name))})
+        return {"plans": plans, "launches": H.hmc_stage.launches, "kernels": len(launches),
+                "stage_ms": per_stage,
+                "hmc_device_ms": profiling.device_times_us(prof, "hmc_kernel")[0] / 1e3,
+                "wall_s": wall, "slots": slots}
+
+    runs = {"per_race": season(False), "batched": season(True), "batched_again": season(True)}
+    base = runs["per_race"]["plans"]
+    same = {}
+    for name in ("batched", "batched_again"):
+        plans = runs[name]["plans"]
+        same[name] = len(plans) == len(base) == 20 and all(
+            x.drivers == y.drivers and x.quali_probs == y.quali_probs and all(
+                torch.equal(getattr(x.params, f), getattr(y.params, f))
+                for f in x.params.__dataclass_fields__)
+            for x, y in zip(plans, base))
+    out = {name: {k: v for k, v in run.items() if k != "plans"} for name, run in runs.items()}
+    stages = lambda run: ", ".join(f"{x:.3f}" for x in run["stage_ms"])
+    log(f"[batched fits] the 2024 walk-forward's fits on {dev} (S {out['batched']['slots']}): "
+        f"race by race {out['per_race']['launches']} stage launches, stages {stages(out['per_race'])} "
+        f"ms of device summed over the fits' launches ({out['per_race']['hmc_device_ms']:.3f} ms in "
+        f"all), prepare {out['per_race']['wall_s']:.3f} s profiled; together "
+        f"{out['batched']['launches']} / {out['batched_again']['launches']} launches, stages "
+        f"{stages(out['batched'])} / {stages(out['batched_again'])} ms "
+        f"({out['batched']['hmc_device_ms']:.3f} / {out['batched_again']['hmc_device_ms']:.3f} ms), "
+        f"prepare {out['batched']['wall_s']:.3f} / {out['batched_again']['wall_s']:.3f} s profiled; "
+        f"plans equal race by race's field by field: {same}; phase {time.perf_counter() - t0:.1f} s")
+    for name in ("batched", "batched_again"):
+        if not out[name]["launches"] == out[name]["kernels"] == 3 * len(out[name]["slots"]):
+            raise AssertionError(f"the batched walk-forward took {out[name]['launches']} stage "
+                                 f"launches ({out[name]['kernels']} profiled) for S "
+                                 f"{out[name]['slots']}")
+    if not out["per_race"]["launches"] == out["per_race"]["kernels"] == 3 * 20:
+        raise AssertionError(f"the season race by race took {out['per_race']['launches']} stage "
+                             f"launches ({out['per_race']['kernels']} profiled) for 20 fits")
+    if not all(same.values()):
+        raise AssertionError(f"the batched walk-forward departs from race by race: {same}")
+    return out
+
+
 def _read_ready(proc, deadline: float) -> tuple[str, list[str]]:
     """The server's base URL from its readiness line, and the lines before
     it; raises when it dies or the deadline passes."""
@@ -1950,6 +2040,7 @@ def main() -> None:
     engine_phase(dev)
     mutation_phase(dev)
     alt = alt_models_and_serving_phases(dev)
+    batched_fits = batched_fits_phase(dev)
     t0 = time.perf_counter()
     prebuild = prebuild_phase()
     traced = trace_phase(dev)
@@ -1961,6 +2052,8 @@ def main() -> None:
                               "prebuild": prebuild["k2_launches"], "walkthrough": walk["k2_launches"]}
     log(f"[phase] all: {time.perf_counter() - START:.1f} s")
     hmc = alt["bayes"].pop("kernel")
+    hmc["batched_fits"] = batched_fits
+    hmc["launches_by_path"]["bayesian walk-forward (a season)"] = batched_fits["batched"]["launches"]
     log("[alternative models and serving] " + json.dumps(alt))
     log(json.dumps({"kernels": [k1, k2, sharded, hmc]}))
     log(smi)

@@ -56,6 +56,14 @@
 //      in order), a fixed butterfly, + y^T y; then the float32 gradient,
 //      momentum and position updates, the scales broadcast from lanes 0-4
 //      by shuffles, and the next effects into shared memory;        barrier
+// Several fits at once. A fit's 4 chains fill 4 of the card's 132 SMs, and a
+// season's walk-forward fits do not depend on each other, so
+// mcgp_hmc_run_batch runs one stage of many fits in one launch
+// (hmc_kernel_batch): a block per chain of every fit, each block reading its
+// fit's Args from a table in device memory and running the same code
+// (run_chain) as that fit's own launch, so each chain's trace and result are
+// bitwise those of hmc_kernel. Fits of one launch share S, the template
+// argument; the dynamic shared memory is the largest fit's.
 // Why float64. Near the posterior C eff ~ b to within colsum (|b_k| ~ 10^3,
 // |colsum_k| ~ 10), so float32 rounding of each term alone (~10^-4) times
 // 1/sigma^2 (up to ~10^3) would move the gradient far outside the plain
@@ -68,11 +76,15 @@
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
+#include <vector>
+
 namespace {
 
 constexpr int kScalars = 5;  // team_mu and the four log-scales lead theta
 constexpr int kRanges = 4;   // ops/hmc_kernel.py: RANGES
 constexpr int kWarps = 4;    // ops/hmc_kernel.py: WARPS; warp w sums range w
+constexpr int kFitPtrs = 20;  // a fit's pointers in mcgp_hmc_run_batch (ops/hmc_kernel.py)
 static_assert(kWarps == kRanges, "one warp per range of the product");
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -296,10 +308,11 @@ __device__ __forceinline__ float kinetic(const Lane<S>& L) {
   return 0.5f * warp_sum(v);
 }
 
-// One block of kWarps warps per chain, S parameters per lane of warp 0; see
-// mcgp_hmc_run for the modes.
+// Chain `chain` of the fit `a` in this block of kWarps warps, S parameters
+// per lane of warp 0; see mcgp_hmc_run for the modes. The block's dynamic
+// shared memory holds at least shared_bytes(a.s.k).
 template <int S>
-__global__ void __launch_bounds__(kWarps * 32) hmc_kernel(const Args a) {
+__device__ __forceinline__ void run_chain(const Args& a, const int chain) {
   extern __shared__ double smem[];
   const Shape s = a.s;
   const int kp = padded(s.k);
@@ -308,7 +321,6 @@ __global__ void __launch_bounds__(kWarps * 32) hmc_kernel(const Args a) {
   double* part = effd + kp;     // (kRanges, k) the product's range sums
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const bool lead = warp == 0;  // warp 0 keeps and updates the chain's state
-  const int chain = blockIdx.x;
   const size_t base = (size_t)chain * s.dim;
   const bool adapt = a.adapt != 0;
 
@@ -459,6 +471,24 @@ __global__ void __launch_bounds__(kWarps * 32) hmc_kernel(const Args a) {
   }
 }
 
+// One fit: block b runs its chain b.
+template <int S>
+__global__ void __launch_bounds__(kWarps * 32) hmc_kernel(const Args a) {
+  run_chain<S>(a, blockIdx.x);
+}
+
+// Several fits of the same S in one launch: fits[f] is fit f's Args, its
+// chains the blocks after those of fits 0..f-1, each block running the same
+// code on its own fit's design, state, draws and trace as that fit's own
+// launch would.
+template <int S>
+__global__ void __launch_bounds__(kWarps * 32)
+    hmc_kernel_batch(const Args* __restrict__ fits, const int n_fits) {
+  int f = 0, first = 0;
+  while (f + 1 < n_fits && (int)blockIdx.x >= first + fits[f].chains) first += fits[f++].chains;
+  run_chain<S>(fits[f], (int)blockIdx.x - first);
+}
+
 template <int S>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   const size_t smem = shared_bytes(a.s.k);
@@ -468,6 +498,21 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
   }
   hmc_kernel<S><<<a.chains, kWarps * 32, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// One launch of hmc_kernel_batch<S> over n_fits fits whose Args are at
+// `fits` in device memory, with `blocks` chains in all; `smem` the largest
+// fit's shared memory.
+template <int S>
+cudaError_t launch_batch(const Args* fits, int n_fits, int blocks, size_t smem,
+                         cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        hmc_kernel_batch<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  hmc_kernel_batch<S><<<blocks, kWarps * 32, smem, stream>>>(fits, n_fits);
   return cudaGetLastError();
 }
 
@@ -505,11 +550,81 @@ struct LaunchOp {
   cudaError_t operator()() const { return launch<S>(*a, stream); }
 };
 
+struct BatchOp {
+  const Args* fits;
+  int n_fits, blocks;
+  size_t smem;
+  cudaStream_t stream;
+  template <int S>
+  cudaError_t operator()() const { return launch_batch<S>(fits, n_fits, blocks, smem, stream); }
+};
+
 struct QueryOp {
   int k;
   template <int S>
   int operator()() const { return blocks_per_sm<S>(k); }
 };
+
+// The Args of one fit (mcgp_hmc_run's arguments), or the error that
+// refuses them.
+cudaError_t fill_args(Args& a, const double* counts, const double* bvec, double yty, int n, int t,
+                      int d, int c, float prec0, float prec1, float prec2, float prec3, int adapt,
+                      double t0, double gamma, double kappa, float target, float log10,
+                      float var_lo, float var_hi, const float* theta, const float* lp,
+                      const float* eps, const float* inv_mass, const float* z, const float* u_jit,
+                      const float* u_acc, float* theta_out, float* lp_out, float* alpha_out,
+                      float* grad_out, float* eps_out, float* var_out, float* lp0_out,
+                      float* trace_theta, float* trace_lp, float* trace_eps, float* trace_alpha,
+                      int chains, int iters, int n_leapfrog) {
+  if (n < 0 || t < 1 || d < 0 || c < 0 || chains < 1 || chains > 65535 || iters < 0 ||
+      n_leapfrog < 0 || lp_out == nullptr)
+    return cudaErrorInvalidValue;
+  if (iters > 0 && (eps == nullptr || inv_mass == nullptr || z == nullptr || u_jit == nullptr ||
+                    u_acc == nullptr || theta_out == nullptr || alpha_out == nullptr ||
+                    n_leapfrog < 1))
+    return cudaErrorInvalidValue;
+  if (adapt && (iters < 1 || eps_out == nullptr || var_out == nullptr))
+    return cudaErrorInvalidValue;
+  if (trace_theta != nullptr && (trace_lp == nullptr || trace_eps == nullptr ||
+                                 trace_alpha == nullptr))
+    return cudaErrorInvalidValue;
+  const int k = t + d + c;
+  a.counts = counts;
+  a.bvec = bvec;
+  a.yty = yty;
+  a.s = Shape{n, t, d, k, kScalars + k};
+  a.pr = Prior{prec0, prec1, prec2, prec3};
+  a.adapt = adapt;
+  a.t0 = t0;
+  a.gamma = gamma;
+  a.kappa = kappa;
+  a.target = target;
+  a.log10 = log10;
+  a.var_lo = var_lo;
+  a.var_hi = var_hi;
+  a.theta = theta;
+  a.lp = lp;
+  a.eps = eps;
+  a.inv_mass = inv_mass;
+  a.z = z;
+  a.u_jit = u_jit;
+  a.u_acc = u_acc;
+  a.theta_out = theta_out;
+  a.lp_out = lp_out;
+  a.alpha_out = alpha_out;
+  a.grad_out = grad_out;
+  a.eps_out = eps_out;
+  a.var_out = var_out;
+  a.lp0_out = lp0_out;
+  a.trace_theta = trace_theta;
+  a.trace_lp = trace_lp;
+  a.trace_eps = trace_eps;
+  a.trace_alpha = trace_alpha;
+  a.chains = chains;
+  a.iters = iters;
+  a.n_leapfrog = n_leapfrog;
+  return cudaSuccess;
+}
 
 }  // namespace
 
@@ -555,54 +670,65 @@ extern "C" int mcgp_hmc_run(const double* counts, const double* bvec, double yty
                             float* lp0_out, float* trace_theta, float* trace_lp,
                             float* trace_eps, float* trace_alpha, int chains, int iters,
                             int n_leapfrog, void* stream) {
-  if (n < 0 || t < 1 || d < 0 || c < 0 || chains < 1 || chains > 65535 || iters < 0 ||
-      n_leapfrog < 0 || lp_out == nullptr)
-    return (int)cudaErrorInvalidValue;
-  if (iters > 0 && (eps == nullptr || inv_mass == nullptr || z == nullptr || u_jit == nullptr ||
-                    u_acc == nullptr || theta_out == nullptr || alpha_out == nullptr ||
-                    n_leapfrog < 1))
-    return (int)cudaErrorInvalidValue;
-  if (adapt && (iters < 1 || eps_out == nullptr || var_out == nullptr))
-    return (int)cudaErrorInvalidValue;
-  if (trace_theta != nullptr && (trace_lp == nullptr || trace_eps == nullptr ||
-                                 trace_alpha == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const int k = t + d + c;
   Args a;
-  a.counts = counts;
-  a.bvec = bvec;
-  a.yty = yty;
-  a.s = Shape{n, t, d, k, kScalars + k};
-  a.pr = Prior{prec0, prec1, prec2, prec3};
-  a.adapt = adapt;
-  a.t0 = t0;
-  a.gamma = gamma;
-  a.kappa = kappa;
-  a.target = target;
-  a.log10 = log10;
-  a.var_lo = var_lo;
-  a.var_hi = var_hi;
-  a.theta = theta;
-  a.lp = lp;
-  a.eps = eps;
-  a.inv_mass = inv_mass;
-  a.z = z;
-  a.u_jit = u_jit;
-  a.u_acc = u_acc;
-  a.theta_out = theta_out;
-  a.lp_out = lp_out;
-  a.alpha_out = alpha_out;
-  a.grad_out = grad_out;
-  a.eps_out = eps_out;
-  a.var_out = var_out;
-  a.lp0_out = lp0_out;
-  a.trace_theta = trace_theta;
-  a.trace_lp = trace_lp;
-  a.trace_eps = trace_eps;
-  a.trace_alpha = trace_alpha;
-  a.chains = chains;
-  a.iters = iters;
-  a.n_leapfrog = n_leapfrog;
+  const cudaError_t err = fill_args(
+      a, counts, bvec, yty, n, t, d, c, prec0, prec1, prec2, prec3, adapt, t0, gamma, kappa,
+      target, log10, var_lo, var_hi, theta, lp, eps, inv_mass, z, u_jit, u_acc, theta_out,
+      lp_out, alpha_out, grad_out, eps_out, var_out, lp0_out, trace_theta, trace_lp, trace_eps,
+      trace_alpha, chains, iters, n_leapfrog);
+  if (err != cudaSuccess) return (int)err;
   const cudaStream_t st = (cudaStream_t)stream;
   return (int)by_slots(a.s.dim, LaunchOp{&a, st}, cudaErrorInvalidValue);
+}
+
+// The bytes of one fit's entry in mcgp_hmc_run_batch's table.
+extern "C" int mcgp_hmc_args_bytes() { return (int)sizeof(Args); }
+
+// One stage of n_fits fits of the same S = ceil((5 + k) / 32) in one launch,
+// each fit's chains as mcgp_hmc_run would run them alone. Per fit f:
+// ptrs[kFitPtrs f ...] its device pointers in mcgp_hmc_run's order (counts,
+// bvec, theta, lp, eps, inv_mass, z, u_jit, u_acc, theta_out, lp_out,
+// alpha_out, grad_out, eps_out, var_out, lp0_out, trace_theta, trace_lp,
+// trace_eps, trace_alpha; 0 for null), sizes[5 f ...] its n, t, d, c and
+// chains, yty[f], and prec[4 f ...] its four prior precisions; the stage's
+// other arguments are every fit's, as in mcgp_hmc_run. `table`: device
+// memory of n_fits * mcgp_hmc_args_bytes() bytes, which this fills on the
+// stream and the launch reads, so it must stay allocated until the launch
+// has run. Returns the first refusal of a fit (cudaErrorInvalidValue, also
+// for fits of different S) or CUDA error of the copy, the opt-in and the
+// launch.
+extern "C" int mcgp_hmc_run_batch(int n_fits, const unsigned long long* ptrs, const int* sizes,
+                                  const double* yty, const float* prec, int adapt, double t0,
+                                  double gamma, double kappa, float target, float log10,
+                                  float var_lo, float var_hi, int iters, int n_leapfrog,
+                                  void* table, void* stream) {
+  if (n_fits < 1 || table == nullptr) return (int)cudaErrorInvalidValue;
+  std::vector<Args> fits(n_fits);
+  long long blocks = 0;
+  size_t smem = 0;
+  for (int f = 0; f < n_fits; ++f) {
+    const unsigned long long* p = ptrs + (size_t)kFitPtrs * f;
+    const int* sz = sizes + 5 * f;
+    auto in = [p](int i) { return reinterpret_cast<const float*>(p[i]); };
+    auto out = [p](int i) { return reinterpret_cast<float*>(p[i]); };
+    const cudaError_t err = fill_args(
+        fits[f], reinterpret_cast<const double*>(p[0]), reinterpret_cast<const double*>(p[1]),
+        yty[f], sz[0], sz[1], sz[2], sz[3], prec[4 * f], prec[4 * f + 1], prec[4 * f + 2],
+        prec[4 * f + 3], adapt, t0, gamma, kappa, target, log10, var_lo, var_hi, in(2), in(3),
+        in(4), in(5), in(6), in(7), in(8), out(9), out(10), out(11), out(12), out(13), out(14),
+        out(15), out(16), out(17), out(18), out(19), sz[4], iters, n_leapfrog);
+    if (err != cudaSuccess) return (int)err;
+    if ((fits[f].s.dim + 31) / 32 != (fits[0].s.dim + 31) / 32) return (int)cudaErrorInvalidValue;
+    blocks += fits[f].chains;
+    smem = std::max(smem, shared_bytes(fits[f].s.k));
+  }
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  // pageable host memory: the call returns once the table is staged, so
+  // `fits` may go when it returns
+  cudaError_t err = cudaMemcpyAsync(table, fits.data(), sizeof(Args) * n_fits,
+                                    cudaMemcpyHostToDevice, st);
+  if (err != cudaSuccess) return (int)err;
+  const BatchOp op{static_cast<const Args*>(table), n_fits, (int)blocks, smem, st};
+  return (int)by_slots(fits[0].s.dim, op, cudaErrorInvalidValue);
 }

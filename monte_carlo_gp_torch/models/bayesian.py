@@ -38,7 +38,11 @@ sampling) is one launch of a hand-written CUDA kernel (`ops/hmc_kernel.py`,
 leapfrog trajectory, logp at the proposal and accept, and a warmup stage's
 dual averaging and Welford variance, one block per chain, every sum in a
 fixed order), the counterpart of the JAX model's compiled warmup and
-sampling loops: three launches a fit. On the CPU the kernel's wrapper runs
+sampling loops: three launches a fit. `sample_posteriors` fits several
+designs together, each stage one launch per distinct S for all of them
+(`hmc_kernel.hmc_stages`), each posterior bitwise its own fit's: a
+walk-forward season's route (`BayesianQualiModel.defer` and
+`fit_deferred`). On the CPU the kernel's wrapper runs
 the plain version the kernel is held to: the eager stage
 (`hmc_kernel.stage_plain`) with the eager transition (`sample_posterior(...,
 plain=True)` runs it without the wrapper on any device).
@@ -65,7 +69,7 @@ from monte_carlo_gp_torch.ops import hmc_kernel
 # the plain version of a transition, which the CPU fit runs
 from monte_carlo_gp_torch.ops.hmc_kernel import hmc_transition_plain as _hmc_transition
 from monte_carlo_gp_torch.utils.logging import log_event
-from monte_carlo_gp_torch.utils.profiling import span
+from monte_carlo_gp_torch.utils.profiling import count, span
 
 # Prior scales.
 TEAM_SIGMA_SCALE = 0.5
@@ -356,24 +360,35 @@ class GraphedTransition:
         torch.cuda.empty_cache()
 
 
-def _staged(theta0, stage, n_warmup: int, draws):
-    """The full schedule of every chain, each stage a `stage(theta, eps0,
-    inv_mass, draws, adapt) -> hmc_kernel.Stage`: two warmup stages
-    (identity mass, then the first stage's Welford mass), then sampling at a
-    fixed step size and mass over the draws that remain after warmup.
-    Returns (samples (samples, chains, dim), accept rate (chains,))."""
+def _staged_all(theta0s: list, stages, n_warmup: int, draws: list) -> list[tuple]:
+    """The full schedule of several fits at once, fit i from theta0s[i]
+    (chains, dim) with draws[i], each stage one `stages(thetas, eps0s,
+    inv_masses, stage_draws, adapt) -> [hmc_kernel.Stage]` call for every
+    fit: two warmup stages (identity mass, then the first stage's Welford
+    mass), then sampling at a fixed step size and mass over the draws that
+    remain after warmup. Returns each fit's (samples (samples, chains, dim),
+    accept rate (chains,))."""
     w1 = max(n_warmup // 2, 1)
     w2 = max(n_warmup - w1, 1)
-    stage1 = tuple(a[:w1] for a in draws)
-    stage2 = tuple(a[w1 : w1 + w2] for a in draws)
-    sampling = tuple(a[w1 + w2 :] for a in draws)
-    chains = theta0.shape[0]
-    eps0 = torch.full((chains,), 0.1, dtype=torch.float32, device=theta0.device)
-    first = stage(theta0, eps0, torch.ones_like(theta0), stage1, True)
-    inv_mass = first.var  # the optimal diagonal M^-1 is about the posterior variance
-    second = stage(first.theta, first.eps, inv_mass, stage2, True)
-    last = stage(second.theta, second.eps, inv_mass, sampling, False)
-    return last.trace_theta, last.alpha_mean
+    stage1 = [tuple(a[:w1] for a in d) for d in draws]
+    stage2 = [tuple(a[w1 : w1 + w2] for a in d) for d in draws]
+    sampling = [tuple(a[w1 + w2 :] for a in d) for d in draws]
+    eps0s = [torch.full((t.shape[0],), 0.1, dtype=torch.float32, device=t.device) for t in theta0s]
+    first = stages(theta0s, eps0s, [torch.ones_like(t) for t in theta0s], stage1, True)
+    inv_masses = [f.var for f in first]  # the optimal diagonal M^-1 is about the posterior variance
+    second = stages([f.theta for f in first], [f.eps for f in first], inv_masses, stage2, True)
+    last = stages([s.theta for s in second], [s.eps for s in second], inv_masses, sampling, False)
+    return [(s.trace_theta, s.alpha_mean) for s in last]
+
+
+def _staged(theta0, stage, n_warmup: int, draws):
+    """`_staged_all` of one fit, each stage a `stage(theta, eps0, inv_mass,
+    draws, adapt) -> hmc_kernel.Stage`. Returns (samples (samples, chains,
+    dim), accept rate (chains,))."""
+    def stages(thetas, eps0s, inv_masses, stage_draws, adapt):
+        return [stage(thetas[0], eps0s[0], inv_masses[0], stage_draws[0], adapt)]
+
+    return _staged_all([theta0], stages, n_warmup, [draws])[0]
 
 
 def _schedule(theta0, logp_fn, step, n_warmup: int, draws):
@@ -396,6 +411,17 @@ def kernel_design(design: QualiDesign, device, plain=None) -> hmc_kernel.KernelD
     sizes = (len(design.teams), len(design.drivers), len(design.circuits))
     return hmc_kernel.kernel_design(design.y, design.team_idx, design.driver_idx,
                                     design.circuit_idx, sizes, _PRIOR_SCALES, *plain, dev)
+
+
+def require_capacity(design: QualiDesign, device) -> None:
+    """Refuse, before any work of its fit, a design the HMC kernel cannot
+    take on `device`: on a CUDA device one over the kernel's column capacity
+    (`hmc_kernel.max_cols`) raises `hmc_kernel.HMCKernelError`, as its launch
+    would; the CPU's plain version takes any design."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        hmc_kernel.require_capacity(_param_dim(design) - _N_SCALAR, hmc_kernel.max_cols(dev),
+                                    torch.cuda.get_device_name(dev))
 
 
 def _eager_step(logp_fn, grad_fn, n_leapfrog: int):
@@ -511,6 +537,91 @@ def sample_posterior_graphed(
                 lambda *_: _run_graphed)
 
 
+def sample_posteriors(
+    designs: list[QualiDesign],
+    num_chains: int = 4,
+    num_warmup: int = 1000,
+    num_samples: int = 1000,
+    num_leapfrog: int = 48,
+    seed: int = 42,
+    device: str | torch.device = "cuda",
+) -> list[QualiPosterior]:
+    """`sample_posterior` of every design at one budget and seed, all fits
+    together: each stage of the schedule is one `hmc_kernel.hmc_stages`
+    call for every fit, on a CUDA device one launch of the kernel's batched
+    entry per distinct S of the designs (`hmc_kernel.slots`), every chain of
+    every fit a block of it; on the CPU each fit's plain stages in turn.
+    Each posterior is bitwise the one `sample_posterior` gives its design
+    alone. A single design is `sample_posterior` itself. A refusal of any
+    fit raises `hmc_kernel.HMCKernelError` before anything launches.
+
+    Several designs add their number to the counter `fit.batched`; spans
+    (inside the caller's): `fit.design` per design, one `fit.chains` (every
+    fit's draws, their upload, the stage launches and the readback), then
+    `fit.posterior` per design."""
+    if len(designs) == 1:
+        return [sample_posterior(designs[0], num_chains, num_warmup, num_samples, num_leapfrog,
+                                 seed, device)]
+    count("fit.batched", len(designs))
+    dev = torch.device(device)
+    kds = []
+    for design in designs:
+        with span("fit.design"):
+            plain = make_log_posterior(design, dev)[:2]
+            with torch.inference_mode():
+                kds.append(kernel_design(design, dev, plain))
+
+    def stages(thetas, eps0s, inv_masses, stage_draws, adapt):
+        return hmc_kernel.hmc_stages(kds, thetas, eps0s, inv_masses, *zip(*stage_draws),
+                                     int(num_leapfrog), adapt)
+
+    with span("fit.chains"):
+        with torch.inference_mode():
+            starts = [_chain_inputs(d, num_chains, num_warmup, num_samples, seed, dev)
+                      for d in designs]
+            runs = _staged_all([theta0 for theta0, _ in starts], stages, int(num_warmup),
+                               [draws for _, draws in starts])
+            chains = [(samples.transpose(0, 1).cpu().numpy(), accept.cpu().numpy())
+                      for samples, accept in runs]
+    posteriors = []
+    for design, kd, (raw, accept) in zip(designs, kds, chains):
+        with span("fit.posterior"):
+            posteriors.append(_posterior(design, kd.sizes, raw, accept))
+    return posteriors
+
+
+def _chain_inputs(design: QualiDesign, num_chains: int, num_warmup: int, num_samples: int,
+                  seed: int, dev: torch.device):
+    """(theta0 (chains, dim), the draws (z, u_jit, u_acc)) of a fit on `dev`:
+    jittered inits and every iteration's draws from `chain_draws`."""
+    dim = _param_dim(design)
+    # Jittered inits: raws near 0, log-scales near log(prior scale / 2).
+    offsets = np.zeros(dim, np.float32)
+    offsets[1:_N_SCALAR] = np.log(np.asarray(_PRIOR_SCALES, np.float32) / 2)
+    w1 = max(num_warmup // 2, 1)
+    n_iters = w1 + max(num_warmup - w1, 1) + num_samples
+    init, draws = chain_draws(seed, num_chains, dim, n_iters)
+    theta0 = (torch.from_numpy(offsets) + 0.1 * init).to(dev)
+    return theta0, tuple(a.to(dev) for a in draws)
+
+
+def _posterior(design: QualiDesign, sizes, raw: np.ndarray, accept: np.ndarray) -> QualiPosterior:
+    """The `QualiPosterior` of the draws `raw` (chains, samples, dim)."""
+    chains, samples, dim = raw.shape
+    con = constrain(torch.from_numpy(raw.reshape(chains * samples, dim)), sizes)
+    return QualiPosterior(
+        design=design,
+        team_effect=con["team_effect"].numpy(),
+        driver_effect=con["driver_effect"].numpy(),
+        circuit_effect=con["circuit_effect"].numpy(),
+        team_mu=con["team_mu"].numpy(),
+        driver_sigma=con["driver_sigma"].numpy(),
+        sigma=con["sigma"].numpy(),
+        accept_rate=accept,
+        raw=raw,
+    )
+
+
 def _fit(design: QualiDesign, num_chains: int, num_warmup: int, num_samples: int,
          num_leapfrog: int, seed: int, device, runner) -> QualiPosterior:
     """`sample_posterior` with its schedule run by `runner(logp_fn, grad_fn,
@@ -527,33 +638,14 @@ def _fit(design: QualiDesign, num_chains: int, num_warmup: int, num_samples: int
         with torch.inference_mode():
             run = runner(logp_fn, grad_fn, dev)
     with span("fit.chains"):
-        dim = _param_dim(design)
-        # Jittered inits: raws near 0, log-scales near log(prior scale / 2).
-        offsets = np.zeros(dim, np.float32)
-        offsets[1:_N_SCALAR] = np.log(np.asarray(_PRIOR_SCALES, np.float32) / 2)
-        w1 = max(num_warmup // 2, 1)
-        n_iters = w1 + max(num_warmup - w1, 1) + num_samples
-        init, draws = chain_draws(seed, num_chains, dim, n_iters)
         with torch.inference_mode():  # no autograd bookkeeping on ~10^5 small ops
-            theta0 = (torch.from_numpy(offsets) + 0.1 * init).to(dev)
-            draws = tuple(a.to(dev) for a in draws)
+            theta0, draws = _chain_inputs(design, num_chains, num_warmup, num_samples, seed, dev)
             samples, accept = run(theta0, logp_fn, grad_fn, int(num_warmup), int(num_leapfrog),
                                   draws)
             raw = samples.transpose(0, 1).cpu().numpy()  # (chains, samples, dim)
             accept = accept.cpu().numpy()
     with span("fit.posterior"):
-        con = constrain(torch.from_numpy(raw.reshape(num_chains * num_samples, dim)), sizes)
-        return QualiPosterior(
-            design=design,
-            team_effect=con["team_effect"].numpy(),
-            driver_effect=con["driver_effect"].numpy(),
-            circuit_effect=con["circuit_effect"].numpy(),
-            team_mu=con["team_mu"].numpy(),
-            driver_sigma=con["driver_sigma"].numpy(),
-            sigma=con["sigma"].numpy(),
-            accept_rate=accept,
-            raw=raw,
-        )
+        return _posterior(design, sizes, raw, accept)
 
 
 def split_rhat(chains_samples: np.ndarray) -> np.ndarray:
@@ -637,6 +729,17 @@ def quali_position_probs(
 # ---------------------------------------------------------------------------
 
 
+@dataclasses.dataclass(eq=False)
+class DeferredFit:
+    """A fit of `design` (the archive whose loader token is `token`) that
+    `BayesianQualiModel.fit_deferred` runs with the others deferred beside
+    it; `posterior` is None until then."""
+
+    design: QualiDesign
+    token: object
+    posterior: QualiPosterior | None = None
+
+
 class BayesianQualiModel:
     """Owns one fitted posterior per feature-archive build, fitted on
     `device`.
@@ -644,7 +747,12 @@ class BayesianQualiModel:
     The fit is cached against the archive frame's loader token
     (`_mcgp_loader_token`): a walk-forward backtest rebuilds the archive per
     race (a new token refits, so race k's model sees only races < k), while
-    repeated predictions within one weekend reuse the fit."""
+    repeated predictions within one weekend reuse the fit.
+
+    A walk-forward may defer its races' fits (`defer`) and run them all at
+    once (`fit_deferred`), the same fits with the same cache decisions as
+    `posterior_for` would take race by race, and the same posterior cached
+    after them."""
 
     def __init__(
         self,
@@ -661,13 +769,16 @@ class BayesianQualiModel:
         self.device = torch.device(device)
         self._token: object | None = None
         self._posterior: QualiPosterior | None = None
+        self._deferred: list[DeferredFit] = []
 
     def fit(self, laps: pd.DataFrame) -> QualiPosterior:
         """The posterior of the archive `laps` (the span `fit`, the
         archive's design frame its own time, `sample_posterior`'s spans
-        inside it)."""
+        inside it). A design the kernel cannot take raises before the fit
+        (`require_capacity`)."""
         with span("fit"):
             design = build_quali_design(laps)
+            require_capacity(design, self.device)
             posterior = sample_posterior(
                 design,
                 num_chains=self.num_chains,
@@ -678,6 +789,55 @@ class BayesianQualiModel:
             )
         self._posterior = posterior
         self._token = laps.attrs.get("_mcgp_loader_token")
+        self._log_fit(posterior)
+        return posterior
+
+    def defer(self, laps: pd.DataFrame) -> DeferredFit:
+        """The fit whose posterior `posterior_for(laps)` would give at this
+        point of a walk-forward, left for `fit_deferred`: the last deferred
+        fit, or the cached posterior, where the archive build is the same
+        (`needs_refit`), else a new deferred fit of the archive's design.
+        A ValueError of the design (the archive cannot support a fit), or
+        the kernel's refusal of it (`require_capacity`), propagates, and
+        nothing is deferred: the fit fails here, alone, as `fit` would."""
+        token = laps.attrs.get("_mcgp_loader_token")
+        if self._deferred:
+            last = self._deferred[-1]
+            if not needs_refit(last, token, last.token):
+                return last
+        elif not needs_refit(self._posterior, token, self._token):
+            return DeferredFit(self._posterior.design, token, self._posterior)
+        design = build_quali_design(laps)
+        require_capacity(design, self.device)
+        fit = DeferredFit(design, token)
+        self._deferred.append(fit)
+        return fit
+
+    def fit_deferred(self) -> None:
+        """Run every deferred fit together (`sample_posteriors`: on a CUDA
+        device one launch per stage and distinct S for all of them) in the
+        span `fit`, and cache the last one's posterior, as fitting them in
+        turn would leave it. A failure raises, and leaves nothing deferred
+        and the cached posterior as it was."""
+        deferred, self._deferred = self._deferred, []
+        if not deferred:
+            return
+        with span("fit"):
+            posteriors = sample_posteriors(
+                [f.design for f in deferred],
+                num_chains=self.num_chains,
+                num_warmup=self.num_warmup,
+                num_samples=self.num_samples,
+                seed=self.seed,
+                device=self.device,
+            )
+        for fit, posterior in zip(deferred, posteriors):
+            fit.posterior = posterior
+            self._log_fit(posterior)
+        self._posterior, self._token = deferred[-1].posterior, deferred[-1].token
+
+    def _log_fit(self, posterior: QualiPosterior) -> None:
+        design = posterior.design
         log_event(
             "bayes_quali_fit",
             rows=design.n_rows,
@@ -687,7 +847,6 @@ class BayesianQualiModel:
             accept=float(np.mean(posterior.accept_rate)),
             device=str(self.device),
         )
-        return posterior
 
     def posterior_for(self, laps: pd.DataFrame) -> QualiPosterior:
         token = laps.attrs.get("_mcgp_loader_token")

@@ -141,6 +141,37 @@ class WeekendPlan:
     grid_is_actual: bool
 
 
+@dataclasses.dataclass(frozen=True)
+class DeferredGrid:
+    """A qualifying grid that waits for its Bayesian fit (`fit`, a
+    `bayesian.DeferredFit`): the posterior-predictive grid of `drivers`
+    (teams `driver_teams`) at `circuit` with the noise seed `seed`, then the
+    grid penalties."""
+
+    fit: object
+    drivers: list[str]
+    driver_teams: dict[str, str | None]
+    circuit: str
+    seed: int
+    penalties: dict[str, int | str]
+
+
+@dataclasses.dataclass(frozen=True)
+class WeekendDraft:
+    """A weekend prepared up to its `SimParams` (`F1Predictor.draft_weekend`):
+    every host input, and the qualifying grid, or (`quali_probs` None) the
+    `DeferredGrid` that gives it once the fits have run."""
+
+    drivers: list[str]
+    circuit_info: dict
+    weather: dict
+    prediction_point: str
+    grid_is_actual: bool
+    sim_inputs: dict
+    quali_probs: dict[str, list[float]] | None
+    grid: DeferredGrid | None = None
+
+
 class F1Predictor:
     """Weekend orchestrator with the JAX package's public surface, running
     the Monte Carlo on `device` with `engine`, split over `mesh` (default:
@@ -287,13 +318,39 @@ class F1Predictor:
         phase: `weekend.elo`, `weekend.archive`, `weekend.session`,
         `weekend.quali`, `weekend.practice`, `weekend.params`."""
         with span("weekend.prepare"):
-            return self._prepare_weekend(
+            return self.finish_weekend(self._draft_weekend(
                 season, race, grid_penalties, circuit_info, prediction_point, actual_grid
-            )
+            ))
 
-    def _prepare_weekend(
-        self, season, race, grid_penalties, circuit_info, prediction_point, actual_grid
-    ) -> WeekendPlan:
+    @property
+    def batches_fits(self) -> bool:
+        """Whether a walk-forward season fits its races' qualifying models
+        together (`validate/backtest.prepare_season_plans`): the Bayesian
+        model, whose lone fit fills 4 of an H100's 132 SMs."""
+        return self._quali_model == "bayesian"
+
+    def draft_weekend(self, season: int, race: str) -> WeekendDraft:
+        """`prepare_weekend(season, race)` up to the `SimParams`, with the
+        Bayesian model's fit deferred (`fit_deferred` runs the deferred fits
+        of many weekends together; `finish_weekend` then makes each plan).
+        Every other input is taken now, at the loader's clock and the Elo
+        state of this call, the Elo grid too where the archive cannot support
+        a fit.
+        The span `weekend.prepare` with `weekend.elo`, `.archive`,
+        `.session`, `.quali` (the design) and `.practice` inside."""
+        with span("weekend.prepare"):
+            return self._draft_weekend(season, race, None, None, "fp2", None, defer=True)
+
+    def fit_deferred(self) -> None:
+        """Run the fits `draft_weekend` deferred, together (the Bayesian
+        model's `fit_deferred`); nothing for another model."""
+        if self._quali_model == "bayesian":
+            self._bayes_model.fit_deferred()
+
+    def _draft_weekend(
+        self, season, race, grid_penalties, circuit_info, prediction_point, actual_grid,
+        defer: bool = False,
+    ) -> WeekendDraft:
         grid_penalties = grid_penalties or {}
         circuit_info = circuit_info or self._get_circuit_info(race)
 
@@ -319,32 +376,50 @@ class F1Predictor:
             weekend_teams = self._teams_from_fp(fp_data, drivers)
 
         with span("weekend.quali"):
-            quali_probs = self._quali_probs(
+            quali_probs, grid = self._quali_probs(
                 season, race, drivers, weekend_teams, grid_penalties,
-                prediction_point, actual_grid,
+                prediction_point, actual_grid, defer,
             )
 
         with span("weekend.practice"):
             sim_inputs = self._practice_inputs(fp_data, drivers, race, weather,
                                                circuit_info, prediction_point)
-
-        with span("weekend.params"):
-            params = self._make_params(
-                drivers=drivers,
-                quali_probs=quali_probs,
-                circuit_info=circuit_info,
-                **sim_inputs,
-            )
-        return WeekendPlan(
-            params=params,
-            total_laps=int(circuit_info.get("laps", 58)),
+        return WeekendDraft(
             drivers=drivers,
-            quali_probs=quali_probs,
+            circuit_info=circuit_info,
             weather=weather,
             prediction_point=prediction_point,
             # an empty dict must not label a model-predicted grid as actual
             grid_is_actual=bool(actual_grid)
             and prediction_point in ("quali", "sprint"),
+            sim_inputs=sim_inputs,
+            quali_probs=quali_probs,
+            grid=grid,
+        )
+
+    def finish_weekend(self, draft: WeekendDraft) -> WeekendPlan:
+        """The plan of a drafted weekend, once its fit has run: the grid
+        from the posterior where it waited for the fit (the span
+        `weekend.quali`), and the `SimParams` (`weekend.params`)."""
+        quali_probs = draft.quali_probs
+        if quali_probs is None:
+            with span("weekend.quali"):
+                quali_probs = self._deferred_quali_probs(draft.grid)
+        with span("weekend.params"):
+            params = self._make_params(
+                drivers=draft.drivers,
+                quali_probs=quali_probs,
+                circuit_info=draft.circuit_info,
+                **draft.sim_inputs,
+            )
+        return WeekendPlan(
+            params=params,
+            total_laps=int(draft.circuit_info.get("laps", 58)),
+            drivers=draft.drivers,
+            quali_probs=quali_probs,
+            weather=draft.weather,
+            prediction_point=draft.prediction_point,
+            grid_is_actual=draft.grid_is_actual,
         )
 
     def _practice_session(self, season: int, race: str, prediction_point: str):
@@ -364,10 +439,11 @@ class F1Predictor:
         return fp_data, weather
 
     def _quali_probs(self, season, race, drivers, weekend_teams, grid_penalties,
-                     prediction_point, actual_grid) -> dict[str, list[float]]:
-        """Each driver's qualifying position distribution: the actual grid,
-        or the qualifying model's (with opt-in rookie seeding first), then
-        the grid penalties."""
+                     prediction_point, actual_grid, defer: bool = False):
+        """(each driver's qualifying position distribution, None): the actual
+        grid, or the qualifying model's (with opt-in rookie seeding first),
+        then the grid penalties. With `defer` and the Bayesian model, a grid
+        that needs the model's fit is (None, its `DeferredGrid`)."""
         # Rookie seeding (opt-in): drivers with no rated history get a
         # teammate-prior Elo, batched so two unrated teammates get
         # order-independent priors.
@@ -395,9 +471,15 @@ class F1Predictor:
                 # ('Bahrain') is resolved first; unresolved, it would
                 # silently zero the circuit signal.
                 circuit = self.data_loader._resolve_event(season, race)
-                quali_probs = self._predict_quali_alt(
-                    drivers, circuit, season, weekend_teams
-                )
+                if defer and self._quali_model == "bayesian":
+                    grid = self._defer_quali_alt(drivers, circuit, season, weekend_teams,
+                                                 grid_penalties)
+                    if grid is not None:
+                        return None, grid
+                else:
+                    quali_probs = self._predict_quali_alt(
+                        drivers, circuit, season, weekend_teams
+                    )
             if quali_probs is None:
                 quali_features = {
                     d: self.feature_engine.calculate_quali_features(d, race)
@@ -406,7 +488,7 @@ class F1Predictor:
                 quali_probs = self._predict_quali(drivers, quali_features)
         if grid_penalties:
             quali_probs = self._adjust_for_penalties(quali_probs, grid_penalties)
-        return quali_probs
+        return quali_probs, None
 
     def _practice_inputs(self, fp_data, drivers, race, weather, circuit_info,
                          prediction_point) -> dict:
@@ -579,13 +661,7 @@ class F1Predictor:
         (never Python's hash, which varies per process)."""
         laps = self.feature_engine.laps
         if laps.empty:
-            log_event(
-                "alt_quali_fallback",
-                model=self._quali_model,
-                reason="empty_archive",
-                race=race,
-            )
-            return None
+            return self._alt_fallback("empty_archive", race)
         noise_seed = zlib.crc32(f"{season}:{race}".encode())
         if driver_teams is None:
             driver_teams = {d: cfg.DRIVER_TEAMS.get(d) for d in drivers}
@@ -594,13 +670,43 @@ class F1Predictor:
                 laps, drivers, driver_teams, circuit=race, seed=noise_seed
             )
         except ValueError as e:
-            log_event(
-                "alt_quali_fallback",
-                model=self._quali_model,
-                reason=str(e),
-                race=race,
-            )
-            return None
+            return self._alt_fallback(str(e), race)
+
+    def _alt_fallback(self, reason: str, race: str) -> None:
+        """Log why the alternative model gives no grid (the Elo grid is
+        taken instead)."""
+        log_event("alt_quali_fallback", model=self._quali_model, reason=reason, race=race)
+
+    def _defer_quali_alt(
+        self, drivers: list[str], race: str, season: int, driver_teams: dict[str, str | None],
+        penalties: dict[str, int | str],
+    ) -> DeferredGrid | None:
+        """`_predict_quali_alt` of the Bayesian model with its fit deferred
+        (`BayesianQualiModel.defer`): the grid's `DeferredGrid`, or None,
+        logged, where the archive cannot support a fit, decided now as
+        `_predict_quali_alt` decides it."""
+        laps = self.feature_engine.laps
+        if laps.empty:
+            return self._alt_fallback("empty_archive", race)
+        try:
+            fit = self._bayes_model.defer(laps)
+        except ValueError as e:
+            return self._alt_fallback(str(e), race)
+        return DeferredGrid(fit, drivers, driver_teams, race,
+                            zlib.crc32(f"{season}:{race}".encode()), penalties)
+
+    def _deferred_quali_probs(self, grid: DeferredGrid) -> dict[str, list[float]]:
+        """The grid of a `DeferredGrid` whose fit has run, as
+        `_predict_quali_alt` and the grid penalties give it."""
+        from monte_carlo_gp_torch.models.bayesian import quali_position_probs
+
+        if grid.fit.posterior is None:
+            raise RuntimeError("the weekend's Bayesian fit has not run (fit_deferred)")
+        probs = quali_position_probs(grid.fit.posterior, grid.drivers, grid.driver_teams,
+                                     grid.circuit, grid.seed)
+        if grid.penalties:
+            probs = self._adjust_for_penalties(probs, grid.penalties)
+        return probs
 
     def _predict_quali(
         self, drivers: list[str], features: dict

@@ -16,7 +16,11 @@ plain version: `stage_plain` with `hmc_transition_plain` steps (the eager
 schedule of `models/bayesian.py`'s fit) and `make_log_posterior`'s functions.
 For CUDA tensors each launches the kernel, one block per chain, or raises.
 Each counts its launches (`hmc_stage.launches`, `hmc_transition.launches`,
-`hmc_logp.launches`).
+`hmc_logp.launches`). `hmc_stages` runs one stage of several fits at once:
+on a card one launch of the kernel's batched entry per distinct S (the
+parameters a lane holds, `slots`), a block per chain of every fit, each
+block on its own fit's design and inputs, so each fit's `Stage` is bitwise
+its own launch's; one fit's chains fill only 4 of an H100's 132 SMs.
 
 The model is linear-Gaussian in its effects: every training row has exactly
 one team, one driver and one circuit column, so with A the (N, K) one-hot
@@ -439,6 +443,10 @@ def load_library(path) -> ctypes.CDLL:
     lib.mcgp_hmc_run.argtypes = [p, p, d, i, i, i, i, f, f, f, f, i, d, d, d, f, f, f, f,
                                  *[p] * 7, *[p] * 11, i, i, i, p]
     lib.mcgp_hmc_run.restype = i
+    lib.mcgp_hmc_run_batch.argtypes = [i, p, p, p, p, i, d, d, d, f, f, f, f, i, i, p, p]
+    lib.mcgp_hmc_run_batch.restype = i
+    lib.mcgp_hmc_args_bytes.argtypes = []
+    lib.mcgp_hmc_args_bytes.restype = i
     lib.mcgp_hmc_max_shared_bytes.argtypes = []
     lib.mcgp_hmc_max_shared_bytes.restype = i
     lib.mcgp_hmc_blocks_per_sm.argtypes = [i]
@@ -542,13 +550,28 @@ def _check(kd: KernelDesign, theta, others: dict, iters: int | None = None) -> N
         raise HMCKernelError(f"the design is on {kd.device}, theta on {theta.device}")
 
 
-def require_capacity(kd: KernelDesign, capacity: int, where: str) -> None:
-    """Raise `HMCKernelError` when kd has more effect columns than
-    `capacity`, the most one launch takes on the card named `where`."""
-    if kd.n_cols > capacity:
+def require_capacity(n_cols: int, capacity: int, where: str) -> None:
+    """Raise `HMCKernelError` when a design of `n_cols` effect columns has
+    more than `capacity`, the most one launch takes on the card named
+    `where`."""
+    if n_cols > capacity:
         raise HMCKernelError(
             f"the HMC kernel keeps the design's K x K counts in one block's shared memory and "
-            f"takes at most {capacity} effect columns on {where}; this design has {kd.n_cols}")
+            f"takes at most {capacity} effect columns on {where}; this design has {n_cols}")
+
+
+# a launch's adaptation constants after the dual averaging's t0, gamma and
+# kappa: the target acceptance, log(10) and the variance clamp, float32
+_SCALARS = tuple(float(np.float32(x)) for x in (TARGET_ACCEPT, math.log(10.0), VAR_MIN, VAR_MAX))
+# the pointers of one fit in a launch, in the C entries' order
+_POINTERS = ("lp", "eps", "inv_mass", "z", "u_jit", "u_acc", "theta_out", "lp_out", "alpha_out",
+             "grad_out", "eps_out", "var_out", "lp0_out", "trace_theta", "trace_lp", "trace_eps",
+             "trace_alpha")
+
+
+def _ptr(tensors: dict, name: str) -> int | None:
+    x = tensors.get(name)
+    return None if x is None else x.data_ptr()
 
 
 def _launch(kd: KernelDesign, theta, iters: int, n_leapfrog: int, adapt: bool = False,
@@ -560,22 +583,71 @@ def _launch(kd: KernelDesign, theta, iters: int, n_leapfrog: int, adapt: bool = 
         build()
     t, d, c = kd.sizes
     card = torch.cuda.get_device_name(theta.device)
-    require_capacity(kd, max_cols(theta.device), card)
-    ptr = lambda name: None if tensors.get(name) is None else tensors[name].data_ptr()
-    scalars = (np.float32(TARGET_ACCEPT), np.float32(math.log(10.0)), np.float32(VAR_MIN),
-               np.float32(VAR_MAX))
+    require_capacity(kd.n_cols, max_cols(theta.device), card)
     with torch.cuda.device(theta.device):
         err = _lib.mcgp_hmc_run(
             kd.counts.data_ptr(), kd.b.data_ptr(), kd.yty, kd.n_rows, t, d, c, *kd.prior_prec,
-            int(adapt), DA_T0, DA_GAMMA, DA_KAPPA, *(float(s) for s in scalars),
-            theta.data_ptr(), *(ptr(k) for k in ("lp", "eps", "inv_mass", "z", "u_jit", "u_acc")),
-            *(ptr(k) for k in ("theta_out", "lp_out", "alpha_out", "grad_out", "eps_out",
-                               "var_out", "lp0_out", "trace_theta", "trace_lp", "trace_eps",
-                               "trace_alpha")),
-            theta.shape[0], iters, n_leapfrog, torch.cuda.current_stream().cuda_stream,
+            int(adapt), DA_T0, DA_GAMMA, DA_KAPPA, *_SCALARS, theta.data_ptr(),
+            *(_ptr(tensors, k) for k in _POINTERS), theta.shape[0], iters, n_leapfrog,
+            torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise HMCKernelError(f"HMC kernel launch failed: CUDA error {err}")
+
+
+def _launch_batch(kds: list[KernelDesign], thetas: list, iters: int, n_leapfrog: int,
+                  adapt: bool, tensors: list[dict]) -> None:
+    """One launch of the kernel's batched entry for the fits `kds` (of one
+    S, checked against the column capacity), fit i from thetas[i] with the
+    pointers tensors[i] names, on the current stream of theta's device."""
+    device = thetas[0].device
+    n = len(kds)
+    ptrs = np.array([[kd.counts.data_ptr(), kd.b.data_ptr(), theta.data_ptr(),
+                      *(_ptr(x, k) or 0 for k in _POINTERS)]
+                     for kd, theta, x in zip(kds, thetas, tensors)], np.uint64)
+    sizes = np.array([[kd.n_rows, *kd.sizes, theta.shape[0]] for kd, theta in zip(kds, thetas)],
+                     np.int32)
+    yty = np.array([kd.yty for kd in kds], np.float64)
+    prec = np.array([kd.prior_prec for kd in kds], np.float32)
+    with torch.cuda.device(device):
+        # the launch reads its fits' table from here; freed after the call, it
+        # is reused only by work later on the same stream
+        table = torch.empty(n * _lib.mcgp_hmc_args_bytes(), dtype=torch.uint8, device=device)
+        err = _lib.mcgp_hmc_run_batch(
+            n, ptrs.ctypes.data, sizes.ctypes.data, yty.ctypes.data, prec.ctypes.data,
+            int(adapt), DA_T0, DA_GAMMA, DA_KAPPA, *_SCALARS, iters, n_leapfrog,
+            table.data_ptr(), torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise HMCKernelError(f"batched HMC kernel launch of {n} fits failed: CUDA error {err}")
+
+
+def _check_stage(kd: KernelDesign, theta, eps0, inv_mass, z, u_jit, u_acc,
+                 n_leapfrog: int) -> None:
+    """`hmc_stage`'s refusals of its inputs."""
+    if z.dim() != 3 or z.shape[0] < 1:
+        raise HMCKernelError(f"z must be (iters >= 1, chains, dim), got {tuple(z.shape)}")
+    _check(kd, theta, dict(eps=eps0, inv_mass=inv_mass, z=z, u_jit=u_jit, u_acc=u_acc),
+           z.shape[0])
+    if n_leapfrog < 1:
+        raise HMCKernelError(f"n_leapfrog must be >= 1, got {n_leapfrog}")
+
+
+def _stage_outputs(theta, eps0, z, u_jit, adapt: bool) -> dict:
+    """New tensors for a stage launch's outputs, by the C entry's names."""
+    out = dict(theta_out=torch.empty_like(theta), lp_out=torch.empty_like(eps0),
+               alpha_out=torch.empty_like(eps0), lp0_out=torch.empty_like(eps0),
+               trace_theta=torch.empty_like(z), trace_lp=torch.empty_like(u_jit),
+               trace_eps=torch.empty_like(u_jit), trace_alpha=torch.empty_like(u_jit))
+    if adapt:
+        out.update(eps_out=torch.empty_like(eps0), var_out=torch.empty_like(theta))
+    return out
+
+
+def _stage_of(out: dict, eps0, adapt: bool) -> Stage:
+    return Stage(out["theta_out"], out["lp_out"], out["eps_out"] if adapt else eps0,
+                 out.get("var_out"), out["alpha_out"], out["lp0_out"], out["trace_theta"],
+                 out["trace_lp"], out["trace_eps"], out["trace_alpha"])
 
 
 def hmc_stage(kd: KernelDesign, theta, eps0, inv_mass, z, u_jit, u_acc, n_leapfrog: int,
@@ -592,30 +664,78 @@ def hmc_stage(kd: KernelDesign, theta, eps0, inv_mass, z, u_jit, u_acc, n_leapfr
     error, or a design over the kernel's column capacity, raises
     `HMCKernelError`, as do inputs of another dtype, shape, layout or
     device."""
-    if z.dim() != 3 or z.shape[0] < 1:
-        raise HMCKernelError(f"z must be (iters >= 1, chains, dim), got {tuple(z.shape)}")
-    iters = z.shape[0]
-    _check(kd, theta, dict(eps=eps0, inv_mass=inv_mass, z=z, u_jit=u_jit, u_acc=u_acc), iters)
-    if n_leapfrog < 1:
-        raise HMCKernelError(f"n_leapfrog must be >= 1, got {n_leapfrog}")
+    _check_stage(kd, theta, eps0, inv_mass, z, u_jit, u_acc, n_leapfrog)
     if theta.device.type == "cpu":
         step = functools.partial(_plain_step, kd, n_leapfrog)
         return stage_plain(theta, kd.logp_fn, step, eps0, inv_mass, (z, u_jit, u_acc), adapt)
-    out = dict(theta_out=torch.empty_like(theta), lp_out=torch.empty_like(eps0),
-               alpha_out=torch.empty_like(eps0), lp0_out=torch.empty_like(eps0),
-               trace_theta=torch.empty_like(z), trace_lp=torch.empty_like(u_jit),
-               trace_eps=torch.empty_like(u_jit), trace_alpha=torch.empty_like(u_jit))
-    if adapt:
-        out.update(eps_out=torch.empty_like(eps0), var_out=torch.empty_like(theta))
-    _launch(kd, theta, iters, int(n_leapfrog), adapt, eps=eps0, inv_mass=inv_mass, z=z,
+    out = _stage_outputs(theta, eps0, z, u_jit, adapt)
+    _launch(kd, theta, z.shape[0], int(n_leapfrog), adapt, eps=eps0, inv_mass=inv_mass, z=z,
             u_jit=u_jit, u_acc=u_acc, **out)
     hmc_stage.launches += 1
-    return Stage(out["theta_out"], out["lp_out"], out["eps_out"] if adapt else eps0,
-                 out.get("var_out"), out["alpha_out"], out["lp0_out"], out["trace_theta"],
-                 out["trace_lp"], out["trace_eps"], out["trace_alpha"])
+    return _stage_of(out, eps0, adapt)
 
 
 hmc_stage.launches = 0
+
+
+def slots(kd: KernelDesign) -> int:
+    """S, the parameters a lane of warp 0 holds for kd (ceil(dim / 32)):
+    the kernel's template argument, which the fits of one launch share."""
+    return -(-kd.dim // 32)
+
+
+def hmc_stages(kds: list[KernelDesign], thetas: list, eps0s: list, inv_masses: list, zs: list,
+               u_jits: list, u_accs: list, n_leapfrog: int, adapt: bool) -> list[Stage]:
+    """One stage of several fits at once: fit i's design and inputs are the
+    i-th entries of the lists, each as `hmc_stage` takes them, and every fit
+    runs the same stage (`adapt`, the iterations of its draws, `n_leapfrog`).
+    Returns each fit's `Stage`, bitwise what `hmc_stage` gives it alone.
+
+    CPU tensors run each fit's `hmc_stage` in turn, as does a single fit.
+    On a CUDA device every fit's inputs and its design's column capacity are
+    checked before anything launches (`HMCKernelError`, as in `hmc_stage`);
+    then the fits of one S (`slots`) run as one launch of the kernel's
+    batched entry on the current stream, a block per chain of every fit,
+    and a fit alone in its S as its own launch. Each launch counts in
+    `hmc_stage.launches`, so a stage takes one launch per distinct S."""
+    fits = list(zip(kds, thetas, eps0s, inv_masses, zs, u_jits, u_accs))
+    if not fits or any(len(x) != len(fits) for x in (kds, thetas, eps0s, inv_masses, zs,
+                                                      u_jits, u_accs)):
+        raise HMCKernelError("hmc_stages takes one design and one of each input per fit")
+    device = thetas[0].device
+    if len(fits) == 1 or device.type == "cpu":
+        return [hmc_stage(*fit, n_leapfrog, adapt) for fit in fits]
+    for fit in fits:
+        _check_stage(*fit, n_leapfrog)
+        if fit[1].device != device:
+            raise HMCKernelError(f"the fits of one launch share a device: {fit[1].device} and "
+                                 f"{device}")
+        if fit[4].shape[0] != zs[0].shape[0]:
+            raise HMCKernelError(f"the fits of one stage share its iterations: {fit[4].shape[0]} "
+                                 f"and {zs[0].shape[0]}")
+    if _lib is None:
+        build()
+    capacity, card = max_cols(device), torch.cuda.get_device_name(device)
+    for kd in kds:
+        require_capacity(kd.n_cols, capacity, card)
+    groups: dict[int, list[int]] = {}
+    for i, kd in enumerate(kds):
+        groups.setdefault(slots(kd), []).append(i)
+    stages: list[Stage | None] = [None] * len(fits)
+    for members in groups.values():
+        if len(members) == 1:
+            (i,) = members
+            stages[i] = hmc_stage(*fits[i], n_leapfrog, adapt)
+            continue
+        outs = [_stage_outputs(thetas[i], eps0s[i], zs[i], u_jits[i], adapt) for i in members]
+        ins = [dict(eps=eps0s[i], inv_mass=inv_masses[i], z=zs[i], u_jit=u_jits[i],
+                    u_acc=u_accs[i], **out) for i, out in zip(members, outs)]
+        _launch_batch([kds[i] for i in members], [thetas[i] for i in members], zs[0].shape[0],
+                      int(n_leapfrog), adapt, ins)
+        hmc_stage.launches += 1
+        for i, out in zip(members, outs):
+            stages[i] = _stage_of(out, eps0s[i], adapt)
+    return stages
 
 
 def _plain_step(kd: KernelDesign, n_leapfrog: int, theta, lp, eps, inv_mass, z, u_jit, u_acc):

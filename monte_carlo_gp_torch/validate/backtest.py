@@ -23,7 +23,9 @@ The sequential backtest runs the single-race kernel once per race through
 and then runs every race in ONE launch of the season kernel
 (`ops.race_kernel.run_monte_carlo_season`), on the predictor's device. With
 `engine="xla"` both take the lap engine instead, and on a mesh of several
-shards every path splits its simulations (`simulate_season_plans`).
+shards every path splits its simulations (`simulate_season_plans`). With the
+Bayesian qualifying model, the batched backtest's preparation runs the
+season's fits together (`prepare_season_plans`' three phases).
 """
 
 from __future__ import annotations
@@ -375,28 +377,85 @@ def prepare_season_plans(
     batched backtest and the parameter sweep (`validate/tune.py`) run before
     any device work. Returns ([WeekendPlan], [actuals dict]). The span
     `backtest.prepare`, each race's `weekend.prepare` and `backtest.actuals`
-    (the actuals and their Elo updates) inside it."""
+    (the actuals and their Elo updates) inside it.
+
+    Where the predictor `batches_fits` (the Bayesian model) the races'
+    qualifying fits run together, in three phases. A: per race at its
+    pinned clock, everything but the fit (`draft_weekend`: the archive's
+    design, refused there where the kernel cannot take it; the Elo grid, at
+    that race's Elo state, where the archive cannot support a fit), then the
+    actuals and their Elo updates, in the per-race order. B: every race's
+    fit at once (`fit_deferred`, the span `fit`). C: per race, the grid
+    from its posterior and its plan (`finish_weekend`). No fit reads Elo,
+    and every race's fit reads only its own archive, so the plans equal
+    those of `prepare_weekend` race by race. A batch that fails skips every
+    race it held."""
     with span("backtest.prepare"):
-        loader = predictor.data_loader
-        plans, acts = [], []
-        cutoffs = _race_cutoffs(loader, season)
-        races = get_races(loader, season)
-        for race_idx, race in enumerate(races):
-            try:
-                _pin(loader, cutoffs, race_idx, pin_clock)
-                plan = predictor.prepare_weekend(season, race)
-                with span("backtest.actuals"):
-                    act = get_actual_results(loader, season, race)
-                    plans.append(plan)
-                    acts.append(act)
-                    _apply_actual_elo(
-                        predictor, act, reference_compat_elo_noop,
-                        race_idx=race_idx, total_races=len(races),
-                    )
-            except Exception as e:  # noqa: BLE001
-                log_event("backtest_skip", season=season, race=race, error=str(e))
-                if verbose:
-                    print(f"Skipping {season} {race}: {e}")
+        batched = getattr(predictor, "batches_fits", False)
+        prepare = _prepare_batched if batched else _prepare_race_by_race
+        return prepare(predictor, season, reference_compat_elo_noop, pin_clock, verbose)
+
+
+def _prepare_race_by_race(predictor, season, compat_noop, pin_clock, verbose):
+    """`prepare_season_plans` race by race: each weekend's plan
+    (`prepare_weekend`, its fit inside), then its actuals and their Elo
+    updates; a race that raises is skipped and logged."""
+    loader = predictor.data_loader
+    plans, acts = [], []
+    cutoffs = _race_cutoffs(loader, season)
+    races = get_races(loader, season)
+    for race_idx, race in enumerate(races):
+        try:
+            _pin(loader, cutoffs, race_idx, pin_clock)
+            plan = predictor.prepare_weekend(season, race)
+            with span("backtest.actuals"):
+                act = get_actual_results(loader, season, race)
+                plans.append(plan)
+                acts.append(act)
+                _apply_actual_elo(predictor, act, compat_noop, race_idx=race_idx,
+                                  total_races=len(races))
+        except Exception as e:  # noqa: BLE001
+            _skip(season, race, e, verbose)
+    return plans, acts
+
+
+def _skip(season: int, race: str, error: Exception, verbose: bool) -> None:
+    log_event("backtest_skip", season=season, race=race, error=str(error))
+    if verbose:
+        print(f"Skipping {season} {race}: {error}")
+
+
+def _prepare_batched(predictor, season, compat_noop, pin_clock, verbose):
+    """`prepare_season_plans`' three phases with the fits run together."""
+    loader = predictor.data_loader
+    cutoffs = _race_cutoffs(loader, season)
+    races = get_races(loader, season)
+    drafts = []  # (race, WeekendDraft, actuals)
+    for race_idx, race in enumerate(races):
+        try:
+            _pin(loader, cutoffs, race_idx, pin_clock)
+            draft = predictor.draft_weekend(season, race)
+            with span("backtest.actuals"):
+                act = get_actual_results(loader, season, race)
+                drafts.append((race, draft, act))
+                _apply_actual_elo(predictor, act, compat_noop, race_idx=race_idx,
+                                  total_races=len(races))
+        except Exception as e:  # noqa: BLE001
+            _skip(season, race, e, verbose)
+    try:
+        predictor.fit_deferred()
+    except Exception as e:  # noqa: BLE001 — the batch held every waiting race
+        for race, draft, _ in drafts:
+            if draft.grid is not None:
+                _skip(season, race, e, verbose)
+        drafts = [x for x in drafts if x[1].grid is None]
+    plans, acts = [], []
+    for race, draft, act in drafts:
+        try:
+            plans.append(predictor.finish_weekend(draft))
+            acts.append(act)
+        except Exception as e:  # noqa: BLE001
+            _skip(season, race, e, verbose)
     return plans, acts
 
 

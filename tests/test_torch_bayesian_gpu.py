@@ -13,8 +13,11 @@ the row kernel held, refuses a design over its column capacity, and the
 Bayesian leg of the walk-forward pole-Brier gate runs on the card. The
 graphed fit (`sample_posterior_graphed`, every transition a replay of one
 captured CUDA graph), the yardstick the kernel is timed against, stays
-bitwise the eager fit of the same seed and releases its graph. Every test
-here needs a CUDA device and skips without one.
+bitwise the eager fit of the same seed and releases its graph. Several fits
+run together (`sample_posteriors`: one launch per stage and S for all of
+them) bitwise as each fit's own launches, refuse before they launch, and
+the Bayesian walk-forward, which fits its races together, gives the plans
+of the same season race by race. Every test here needs a CUDA device and skips without one.
 
 This file imports torch and the port only, so it also runs on a GPU machine
 without jax:
@@ -37,6 +40,7 @@ from torch_quali_world import (
     GATE_REL,
     TEAM_OF,
     alt_quali_pole_briers,
+    generated_design,
     total_pace,
     world,
 )
@@ -204,28 +208,13 @@ def test_kernel_at_the_largest_synthetic_archive(cuda_device, tmp_path):
     assert np.all((post.accept_rate > 0.6) & (post.accept_rate < 0.99))
 
 
-def _generated_design(n_rows, sizes, seed):
-    """A design of `n_rows` rows whose gaps follow the model: team, driver
-    and circuit effects plus noise, from a numpy seed."""
-    rng = np.random.default_rng(seed)
-    t, d, c = sizes
-    team, driver, circuit = (rng.integers(0, k, n_rows) for k in sizes)
-    y = (rng.normal(1.0, 0.5, t)[team] + rng.normal(0, 0.3, d)[driver]
-         + rng.normal(0, 0.2, c)[circuit] + rng.normal(0, 0.1, n_rows))
-    return B.QualiDesign(
-        y=y.astype(np.float32), team_idx=team.astype(np.int32),
-        driver_idx=driver.astype(np.int32), circuit_idx=circuit.astype(np.int32),
-        teams=tuple(f"T{i}" for i in range(t)), drivers=tuple(f"D{i}" for i in range(d)),
-        circuits=tuple(f"C{i}" for i in range(c)))
-
-
 @pytest.mark.gpu
 def test_a_design_past_the_old_row_limit_fits(cuda_device):
     """60,000 rows at 50 effect columns, past the 57,705 rows the row
     kernel took at 50 columns: rows no longer bound a launch, so the fit
     runs as its three stage launches, its logp and gradient equal to the
     kernel's arithmetic in plain PyTorch at the final state."""
-    design = _generated_design(60_000, (10, 24, 16), seed=8)
+    design = generated_design(60_000, (10, 24, 16), seed=8)
     H.hmc_stage.launches = 0
     post = B.sample_posterior(design, num_warmup=200, num_samples=100, seed=2, device=cuda_device)
     assert H.hmc_stage.launches == 3
@@ -282,3 +271,101 @@ def test_bayesian_pole_brier_gate_on_the_card(cuda_device, tmp_path):
           f"{time.perf_counter() - t0:.1f} s")
     assert briers["bayesian"] < GATE_ABS, briers
     assert briers["bayesian"] < GATE_REL * briers["elo"], briers
+
+
+# designs of three dims over two values of S (parameters per lane): 26 and
+# 41 (S = 1 and 2), 55 (S = 2), and two of 26
+_BATCH_SIZES = ((5, 10, 6), (8, 16, 12), (10, 24, 16), (5, 10, 6), (5, 10, 6))
+
+
+@pytest.mark.gpu
+def test_batched_fits_equal_each_fits_own_launches(cuda_device):
+    """Five fits together at 200 + 100: one launch per stage and S (6 in
+    all), and every fit's posterior bitwise that of its own three launches;
+    each stage's traces and results bitwise too."""
+    designs = [generated_design(700 + 100 * i, sizes, seed=20 + i)
+               for i, sizes in enumerate(_BATCH_SIZES)]
+    kds = [B.kernel_design(d, cuda_device) for d in designs]
+    assert sorted({H.slots(kd) for kd in kds}) == [1, 2]
+    H.hmc_stage.launches = 0
+    batched = B.sample_posteriors(designs, num_warmup=200, num_samples=100, seed=7,
+                                  device=cuda_device)
+    assert H.hmc_stage.launches == 3 * 2
+    H.hmc_stage.launches = 0
+    alone = [B.sample_posterior(d, num_warmup=200, num_samples=100, seed=7, device=cuda_device)
+             for d in designs]
+    assert H.hmc_stage.launches == 3 * len(designs)
+    for got, want in zip(batched, alone):
+        assert np.array_equal(got.raw, want.raw)
+        assert np.array_equal(got.accept_rate, want.accept_rate)
+        assert np.isfinite(got.raw).all()
+
+    # one warmup stage, the fits' own inputs: every output bitwise
+    gen = torch.Generator().manual_seed(3)
+    inputs = []
+    for kd in kds:
+        theta = 0.1 * torch.randn(4, kd.dim, generator=gen)
+        theta[:, 1:5] += torch.log(torch.tensor([0.25, 0.15, 0.1, 0.05]))
+        inputs.append([x.to(cuda_device) for x in (
+            theta, torch.full((4,), 0.05), torch.ones(4, kd.dim),
+            torch.randn(40, 4, kd.dim, generator=gen), torch.rand(40, 4, generator=gen),
+            torch.rand(40, 4, generator=gen))])
+    stages = H.hmc_stages(kds, *map(list, zip(*inputs)), 48, True)
+    for kd, x, got in zip(kds, inputs, stages):
+        want = H.hmc_stage(kd, *x, 48, True)
+        for field in ("theta", "lp", "eps", "var", "alpha_mean", "lp0", "trace_theta",
+                      "trace_lp", "trace_eps", "trace_alpha"):
+            assert torch.equal(getattr(got, field), getattr(want, field)), field
+
+
+@pytest.mark.gpu
+def test_a_batch_refuses_before_it_launches(cuda_device, monkeypatch):
+    """A design over the column capacity, or fits of different iterations,
+    raise `HMCKernelError` and launch nothing."""
+    designs = [generated_design(500, sizes, seed=30 + i) for i, sizes in enumerate(_BATCH_SIZES)]
+    monkeypatch.setattr(H, "max_cols", lambda device: 40)
+    H.hmc_stage.launches = 0
+    with pytest.raises(H.HMCKernelError, match="at most 40 effect columns .* this design has 50"):
+        B.sample_posteriors(designs, num_warmup=20, num_samples=10, device=cuda_device)
+    assert H.hmc_stage.launches == 0
+    monkeypatch.undo()
+    kds = [B.kernel_design(d, cuda_device) for d in designs[:2]]
+    xs = [[x.to(cuda_device) for x in (
+        torch.zeros(4, kd.dim), torch.full((4,), 0.1), torch.ones(4, kd.dim),
+        torch.zeros(iters, 4, kd.dim), torch.zeros(iters, 4), torch.zeros(iters, 4))]
+        for kd, iters in zip(kds, (6, 5))]
+    with pytest.raises(H.HMCKernelError, match="share its iterations"):
+        H.hmc_stages(kds, *map(list, zip(*xs)), 4, True)
+    assert H.hmc_stage.launches == 0
+
+
+@pytest.mark.gpu
+def test_batched_walk_forward_on_the_card_equals_the_per_race_route(cuda_device, tmp_path):
+    """The synthetic 2024 season's first 6 races at 100 + 50: the Bayesian
+    walk-forward launches 3 stages per distinct S, and its plans equal,
+    field by field, those of the same season race by race (`prepare_weekend`,
+    3 launches a fit)."""
+    from monte_carlo_gp_torch.data.synthetic import SyntheticBackend
+    from monte_carlo_gp_torch.models.predictor import F1Predictor
+    from monte_carlo_gp_torch.validate import backtest as bt
+
+    def season(batch):
+        p = F1Predictor(cache_dir=tmp_path, backend=SyntheticBackend(seed=2718, n_events=6),
+                        device=cuda_device, quali_model="bayesian")
+        p._bayes_model = B.BayesianQualiModel(num_warmup=100, num_samples=50, device=cuda_device)
+        assert p.batches_fits
+        H.hmc_stage.launches = 0
+        if batch:
+            plans, _ = bt.prepare_season_plans(p, 2024, verbose=False)
+        else:
+            plans, _ = bt._prepare_race_by_race(p, 2024, False, True, False)
+        return plans, H.hmc_stage.launches
+
+    (per_race, per_race_launches), (batched, launches) = season(False), season(True)
+    assert len(batched) == len(per_race) == 6
+    assert per_race_launches == 3 * 6 and launches in (3, 6)
+    for x, y in zip(batched, per_race):
+        assert x.drivers == y.drivers and x.quali_probs == y.quali_probs
+        for field in x.params.__dataclass_fields__:
+            u, v = getattr(x.params, field), getattr(y.params, field)
+            assert torch.equal(u, v) if isinstance(u, torch.Tensor) else u == v, field

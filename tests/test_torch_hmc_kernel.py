@@ -250,7 +250,7 @@ def test_routes_on_the_cpu_are_the_eager_fit(designs):
 def _refuse_capacity(kd, theta, *args, **kw):
     """The wrapper's capacity check as it runs before a launch, on a card
     whose shared memory took one effect column fewer than kd has."""
-    H.require_capacity(kd, kd.n_cols - 1, "a card with one column too few")
+    H.require_capacity(kd.n_cols, kd.n_cols - 1, "a card with one column too few")
 
 
 def _refuse_inputs(kd, theta, *args, **kw):

@@ -41,6 +41,24 @@ def world(seed=0, laps_per=8, noise=0.08):
     return pd.DataFrame(rows), truth
 
 
+def generated_design(n_rows, sizes, seed):
+    """A Bayesian design of `n_rows` rows whose gaps follow the model: team,
+    driver and circuit effects of (T, D, C) = `sizes` plus noise, from a
+    numpy seed."""
+    from monte_carlo_gp_torch.models.bayesian import QualiDesign
+
+    rng = np.random.default_rng(seed)
+    t, d, c = sizes
+    team, driver, circuit = (rng.integers(0, k, n_rows) for k in sizes)
+    y = (rng.normal(1.0, 0.5, t)[team] + rng.normal(0, 0.3, d)[driver]
+         + rng.normal(0, 0.2, c)[circuit] + rng.normal(0, 0.1, n_rows))
+    return QualiDesign(
+        y=y.astype(np.float32), team_idx=team.astype(np.int32),
+        driver_idx=driver.astype(np.int32), circuit_idx=circuit.astype(np.int32),
+        teams=tuple(f"T{i}" for i in range(t)), drivers=tuple(f"D{i}" for i in range(d)),
+        circuits=tuple(f"C{i}" for i in range(c)))
+
+
 def total_pace(post) -> np.ndarray:
     """Each driver's posterior mean team + driver effect."""
     d = post.design

@@ -11,6 +11,13 @@ monte_carlo_gp_torch/validate/tune.py).
 
     python -m monte_carlo_gp_torch.tune --seasons 2024 --synthetic \
         --grid sc_prob=0.005,0.01,0.02 --grid variance_scale=0.8,1.0,1.25
+
+The sweep records the spans `tune.sweep` (the whole call), `tune.prepare`
+(each season's walk-forward preparation), `tune.config` (one configuration
+over its seasons) with `tune.overrides`, `backtest.simulate` and
+`tune.score` inside it, and `tune.rank` (the sort), and the counter
+`tune.configs` (one per configuration evaluated, the default included), in
+the process's recorder (`utils/profiling.py`).
 """
 
 from __future__ import annotations

@@ -23,6 +23,16 @@ multiplicative `*_scale` on a per-driver array (`variance_scale`,
 `tire_deg_scale`, `dnf_scale`, `team_dnf_scale`). Quali probabilities are
 NOT affected by race-sim scalars, so `pole_brier` is identical across
 configs — a built-in self-check the tests assert.
+
+Spans and counters (`utils/profiling.py`): `tune.sweep` is the whole call;
+`tune.prepare` each season's `prepare_season_plans` (with `backtest.prepare`
+inside); `tune.config` one configuration, the default included, over its
+seasons, with `tune.overrides` (`apply_overrides` over the plans),
+`backtest.simulate` ⊃ `simulate.readback` (each season's launch and the
+host's wait for it) and `tune.score` (`score_season_plans`, with
+`backtest.score`, and the record's Briers and podium accuracy) inside it;
+`tune.rank` the sort. The counter `tune.configs` counts the configurations
+evaluated.
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ import torch
 from monte_carlo_gp_torch.config import SimParams
 from monte_carlo_gp_torch.parallel.mesh import Mesh
 from monte_carlo_gp_torch.utils.logging import log_event
+from monte_carlo_gp_torch.utils.profiling import count, span
 from monte_carlo_gp_torch.validate.backtest import (
     prepare_season_plans,
     score_season_plans,
@@ -167,52 +178,63 @@ def sweep_backtest(
     if metric not in ("win_brier", "podium_accuracy"):
         raise ValueError(f"unknown metric {metric!r}")
 
-    # Phase 1 (host, once): leakage-correct walk-forward prep per season.
-    prepared = []  # (predictor, plans, acts, season)
-    for season in seasons:
-        predictor = predictor_factory()
-        plans, acts = prepare_season_plans(
-            predictor, season,
-            reference_compat_elo_noop=reference_compat_elo_noop,
-            pin_clock=pin_clock, verbose=verbose,
-        )
-        if plans:
-            prepared.append((predictor, plans, acts, season))
-    if not prepared:
-        raise ValueError(f"no races prepared for seasons {seasons}")
+    with span("tune.sweep"):
+        # Phase 1 (host, once): leakage-correct walk-forward prep per season.
+        prepared = []  # (predictor, plans, acts, season)
+        for season in seasons:
+            with span("tune.prepare"):
+                predictor = predictor_factory()
+                plans, acts = prepare_season_plans(
+                    predictor, season,
+                    reference_compat_elo_noop=reference_compat_elo_noop,
+                    pin_clock=pin_clock, verbose=verbose,
+                )
+            if plans:
+                prepared.append((predictor, plans, acts, season))
+        if not prepared:
+            raise ValueError(f"no races prepared for seasons {seasons}")
 
-    # Phase 2+3 (a season launch per config + host scoring).
-    def evaluate(overrides: dict[str, float]) -> dict:
-        predictions, actuals = [], []
-        for predictor, plans, acts, season in prepared:
-            params_list = [apply_overrides(p.params, overrides) for p in plans]
-            probs = simulate_season_plans(
-                predictor, plans, seed * 1_000_003 + season, n_simulations,
-                params_list=params_list, engine=engine, mesh=mesh,
-            )
-            preds, a = score_season_plans(predictor, plans, acts, probs)
-            predictions.extend(preds)
-            actuals.extend(a)
-        rec = {
-            "overrides": dict(overrides),
-            "pole_brier": brier_score(
-                [p["pole_probabilities"] for p in predictions],
-                [a["pole"] for a in actuals],
-            ),
-            "win_brier": brier_score(
-                [p["win_probabilities"] for p in predictions],
-                [a["winner"] for a in actuals],
-            ),
-            "podium_accuracy": podium_accuracy(predictions, actuals),
-            "n_races": len(predictions),
-        }
-        log_event("sweep_config", metric=metric, value=rec[metric],
-                  **{f"grid_{k}": v for k, v in overrides.items()})
-        return rec
+        # Phase 2+3 (a season launch per config + host scoring).
+        def evaluate(overrides: dict[str, float]) -> dict:
+            with span("tune.config"):
+                count("tune.configs")
+                with span("tune.overrides"):
+                    params = [[apply_overrides(p.params, overrides) for p in plans]
+                              for _, plans, _, _ in prepared]
+                probs = [
+                    simulate_season_plans(
+                        predictor, plans, seed * 1_000_003 + season, n_simulations,
+                        params_list=params_list, engine=engine, mesh=mesh,
+                    )
+                    for (predictor, plans, _, season), params_list in zip(prepared, params)
+                ]
+                with span("tune.score"):
+                    predictions, actuals = [], []
+                    for (predictor, plans, acts, _), p in zip(prepared, probs):
+                        preds, a = score_season_plans(predictor, plans, acts, p)
+                        predictions.extend(preds)
+                        actuals.extend(a)
+                    rec = {
+                        "overrides": dict(overrides),
+                        "pole_brier": brier_score(
+                            [p["pole_probabilities"] for p in predictions],
+                            [a["pole"] for a in actuals],
+                        ),
+                        "win_brier": brier_score(
+                            [p["win_probabilities"] for p in predictions],
+                            [a["winner"] for a in actuals],
+                        ),
+                        "podium_accuracy": podium_accuracy(predictions, actuals),
+                        "n_races": len(predictions),
+                    }
+                log_event("sweep_config", metric=metric, value=rec[metric],
+                          **{f"grid_{k}": v for k, v in overrides.items()})
+            return rec
 
-    default = evaluate({}) if include_default else None
-    results = [evaluate(cfg) for cfg in configs]
-    results.sort(key=lambda r: r[metric], reverse=metric in _MAXIMIZE)
+        default = evaluate({}) if include_default else None
+        results = [evaluate(cfg) for cfg in configs]
+        with span("tune.rank"):
+            results.sort(key=lambda r: r[metric], reverse=metric in _MAXIMIZE)
     return {
         "results": results,
         "best": results[0],

@@ -217,6 +217,30 @@ def test_wide_season_matches_plain_and_single_races(cuda_device):
     assert torch.equal(kernel, shaped)
 
 
+@pytest.mark.gpu
+def test_season_kernel_matches_plain_version_at_a_million_sims(cuda_device):
+    """K2 at the sweep's size, 20 races x 1,048,576 simulations in one
+    launch (the synthetic 2024 season of the golden file, race r at
+    `fold_in(42 * 1_000_003 + 2024, r)`), against its plain version; every
+    real row finishes each simulation once. Prints the launch's time."""
+    n = 1 << 20
+    _, (pmat_s, scal_s, grid_log_s, laps, seeds) = golden.case_inputs(
+        "k2_season2024", cuda_device, golden.synthetic_season(cuda_device))
+    rk.season_counts(pmat_s, scal_s, grid_log_s, laps, 1_024, seeds)  # the library's load
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    kernel = rk.season_counts(pmat_s, scal_s, grid_log_s, laps, n, seeds)
+    end.record()
+    torch.cuda.synchronize()
+    plain = rk.season_counts_plain(pmat_s, scal_s, grid_log_s, laps, n, seeds)
+    diff = (kernel.long() - plain).abs()
+    print(f"K2, {len(laps)} races x {n} sims: {start.elapsed_time(end):.3f} ms; "
+          f"max |count - plain| {diff.max().item()} in {int((diff > 0).sum())} of "
+          f"{diff.numel()} cells")
+    assert diff.max().item() <= max(MAX_ABS_COUNT_ERR, MAX_ABS_PROB_ERR * n)
+    assert bool((kernel.sum(2) == n).all()) and bool((kernel.sum(1) == n).all())
+
+
 # ---- the sharded launches: shards on one card --------------------------------------
 
 

@@ -207,7 +207,8 @@ def test_no_program_span_takes_a_benchmark_range_name():
             "simulate.launch", "simulate.readback", "weekend.assemble", "fit", "fit.design",
             "fit.chains", "fit.posterior", "backtest.prepare", "backtest.actuals",
             "backtest.simulate", "backtest.score", "serve.handle", "serve.read",
-            "serve.predict", "serve.plan", "serve.reply"} == names
+            "serve.predict", "serve.plan", "serve.reply", "tune.sweep", "tune.prepare",
+            "tune.config", "tune.overrides", "tune.score", "tune.rank"} == names
     assert not names & (weekend.SPANS | season.SPANS | {"request", trace.WINDOW})
 
 

@@ -21,10 +21,12 @@ that each went through its kernel:
     each, 10,000 simulations per race) through K2, one launch per season;
   * the sequential backtest of the same seasons through K1, once per race;
   * the parameter sweep (2024, a 2x2 grid plus the default) through K2;
-  * wide fields: K1 at 40, 80 and 128 drivers (two to four cars per lane)
-    against its plain version and, at 40, against the native oracle; K2 on
-    a season of 80-, 64-, 40- and 20-driver fields padded to 80, through the
-    season path; weekends of 40, 80, 128 and 150 drivers through
+  * wide fields: K1 at 24, 40, 80 and 128 drivers (one to four cars per
+    lane, one simulation a warp) against its plain version and, at 40,
+    against the native oracle; K2 on a season of 80-, 64-, 40- and 20-driver
+    fields padded to 80 and on one of 32-, 26-, 24- and 21-driver fields
+    padded to 32, through the season path; weekends of 24, 40, 80, 128 and
+    150 drivers through
     `F1Predictor.simulate_plan` (K1 up to 128 drivers, the lap engine
     above); the lap engine on the card against K1 and the native oracle;
     and the two-compound rule mutation of the oracle, which K1's tolerance
@@ -151,13 +153,14 @@ WIN_BRIER_ATOL = 0.01
 # at 262,144; K1 at 40 drivers against the native oracle in the JAX
 # package's D = 40 anchor (tests/test_engine_stats.py:172-216, bound 0.025
 # at 32,768 engine and 200,000 oracle sims; here 262,144 and 65,536, less
-# noise on the sum); a season of these widths padded to 80
-WIDE_WIDTHS, WIDE_LAPS = (40, 80, 128), 57
+# noise on the sum); seasons of wide fields padded to the widest, 80 (three
+# cars a lane) and 32 (one)
+WIDE_WIDTHS, WIDE_LAPS = (24, 40, 80, 128), 57
 WIDE_CHECK_SIMS, WIDE_TIME_SIMS = 65_536, 262_144
 ANCHOR_KERNEL_SIMS, ANCHOR_ORACLE_SIMS, ANCHOR_TV = 262_144, 65_536, 0.025
-WIDE_SEASON_WIDTHS, WIDE_SEASON_SEED = (80, 64, 40, 20), 4242
+WIDE_SEASONS, WIDE_SEASON_SEED = ((80, 64, 40, 20), (32, 26, 24, 21)), 4242
 # weekends through the predictor: K1 up to 128 drivers, the lap engine above
-WEEKEND_WIDTHS, WEEKEND_SIMS, WEEKEND_LAPS = (40, 80, 128, 150), 65_536, 10
+WEEKEND_WIDTHS, WEEKEND_SIMS, WEEKEND_LAPS = (24, 40, 80, 128, 150), 65_536, 10
 # the lap engine against K1 (262,144 sims a side: the Monte Carlo floor of
 # the per-driver TV is ~0.005-0.007 at 20-40 drivers) and against the native
 # oracle at 150 drivers
@@ -625,7 +628,7 @@ def season_phases(dev, golden_cells: int) -> tuple[list[int], dict, dict, dict]:
 
 
 def wide_kernel_phases(dev) -> list[dict]:
-    """K1 at 40, 80 and 128 drivers against its plain version (and
+    """K1 at 24, 40, 80 and 128 drivers against its plain version (and
     determinism and launch shapes at 80), timed beside its bound and its
     plain version; then K1 at 40 drivers against the native oracle. Returns
     K1's wide readings."""
@@ -693,12 +696,12 @@ def wide_kernel_phases(dev) -> list[dict]:
     return rows
 
 
-def wide_season_phase(dev, laps: list[int]) -> dict:
-    """K2 on 20 races of the synthetic 2024 lap counts with fields of 80,
-    64, 40 and 20 drivers in turn, padded to 80: through the season path
-    (`simulate_season_plans`, one K2 launch), against its plain version,
-    race r bitwise equal to K1 at `fold_in(seed, r)`, two launch shapes
-    bitwise equal, and timed. Returns K2's wide reading."""
+def wide_season_phase(dev, laps: list[int], season_widths: tuple[int, ...]) -> dict:
+    """K2 on 20 races of the synthetic 2024 lap counts with fields of
+    `season_widths` drivers in turn, padded to the widest: through the
+    season path (`simulate_season_plans`, one K2 launch), against its plain
+    version, race r bitwise equal to K1 at `fold_in(seed, r)`, two launch
+    shapes bitwise equal, and timed. Returns K2's wide reading."""
     from monte_carlo_gp_torch.models.predictor import F1Predictor
     from monte_carlo_gp_torch.data.synthetic import SyntheticBackend
     from monte_carlo_gp_torch.ops import philox
@@ -707,10 +710,10 @@ def wide_season_phase(dev, laps: list[int]) -> dict:
     from monte_carlo_gp_torch.validate import backtest as bt
 
     t0 = time.perf_counter()
-    widths = [WIDE_SEASON_WIDTHS[r % len(WIDE_SEASON_WIDTHS)] for r in range(len(laps))]
+    widths = [season_widths[r % len(season_widths)] for r in range(len(laps))]
     plist = [wide_field(w, dev) for w in widths]
     n = WIDE_CHECK_SIMS
-    predictor = F1Predictor(cache_dir=SMOKE_CACHE / "wide_season",
+    predictor = F1Predictor(cache_dir=SMOKE_CACHE / f"wide_season_{max(widths)}",
                             backend=SyntheticBackend(seed=2718), device=dev)
     plans = [wide_plan(w, dev, lp, params=p) for w, lp, p in zip(widths, laps, plist)]
     probs, wall, k1, k2 = run_counted(
@@ -754,7 +757,7 @@ def wide_season_phase(dev, laps: list[int]) -> dict:
 
 
 def wide_weekend_phase(dev) -> dict[int, int]:
-    """Weekends of 40, 80, 128 and 150 drivers through
+    """Weekends of 24, 40, 80, 128 and 150 drivers through
     `F1Predictor.simulate_plan` + `assemble_result` on the card: one K1
     launch up to 128 drivers; at 150 no K1 launch and one lap-engine call on
     the card. Returns the K1 launches of each width."""
@@ -2032,7 +2035,7 @@ def main() -> None:
     xla_cli_phase(dist, batched_2024)
 
     k1_wide = wide_kernel_phases(dev)
-    k2["wide"] = [wide_season_phase(dev, laps)]
+    k2["wide"] = [wide_season_phase(dev, laps, widths) for widths in WIDE_SEASONS]
     launches = wide_weekend_phase(dev)
     for row in k1_wide:
         row["launches"] = launches[row["d"]]

@@ -5,8 +5,10 @@ lap 1, laps 2..race_laps, classification) and adds its finishing order to a
 `race_counts` is the entry point for one race, `season_counts` for a
 season of races in one launch. For CPU tensors they run `race_counts_plain`
 and `season_counts_plain`, the plain PyTorch versions; for CUDA tensors
-they launch the hand-written kernels in `csrc/race_kernel.cu` (one warp per
-simulation, ceil(D / 32) cars per lane, one race body for both), or raise.
+they launch the hand-written kernels in `csrc/race_kernel.cu` (one race body
+for both: three simulations a warp of two cars a lane up to 20 drivers, one
+simulation a warp of ceil(D / 32) cars a lane above; `kernel_tier`), or
+raise.
 `race_counts_sharded` and `season_counts_sharded` split the simulations over
 a mesh of devices (`parallel/mesh.py`) and sum the shards' counts, with one
 all-reduce across processes. Both follow the Pallas kernel
@@ -36,6 +38,7 @@ from monte_carlo_gp_torch.ops import philox
 from monte_carlo_gp_torch.ops.ranking import inverse_permutation, rank_key, rank_tier
 from monte_carlo_gp_torch.parallel import distributed
 from monte_carlo_gp_torch.parallel.mesh import Mesh, local_shards, resolve_mesh
+from monte_carlo_gp_torch.utils.profiling import count
 
 INF = 1e30
 
@@ -538,8 +541,21 @@ def build():
 
     path = build_cuda_library("race_kernel", _SOURCES)
     if _lib is None:
-        _lib = load_library(path)
+        lib = load_library(path)
+        check_instances(lib)
+        _lib = lib
     return path
+
+
+def check_instances(lib) -> None:
+    """Raise unless the library runs every field width 1..128 on the
+    instance `kernel_tier` gives (`library_tier`)."""
+    wrong = [d for d in range(1, 129) if library_tier(lib, d) != kernel_tier(d)]
+    if wrong:
+        raise RuntimeError(
+            f"the race-kernel library runs {len(wrong)} field widths (first {wrong[0]}) on "
+            f"another instance than kernel_tier gives: update kernel_tier with the kernels"
+        )
 
 
 def load_library(path) -> ctypes.CDLL:
@@ -564,6 +580,10 @@ def load_library(path) -> ctypes.CDLL:
     fn = lib.mcgp_blocks_per_sm
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_int
+    if hasattr(lib, "mcgp_sims_per_warp"):  # not in a library from before the packed instance
+        for fn in (lib.mcgp_cars_per_lane, lib.mcgp_sims_per_warp):
+            fn.argtypes = [ctypes.c_int]
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -597,9 +617,9 @@ def race_counts(
         return counts
     with torch.cuda.device(pmat.device):
         warps_per_block, full_grid = launch_shape(pmat.device, d, warps_per_block)
-        if n_blocks is None:
-            n_blocks = full_grid
-        n_blocks = min(-(-n_sims // warps_per_block), n_blocks)
+        sims_per_warp = library_tier(_lib, d)[1]
+        n_blocks = grid_blocks(n_sims, sims_per_warp, warps_per_block,
+                               full_grid if n_blocks is None else n_blocks)
         if not 1 <= n_blocks <= 2**31 - 1:
             raise ValueError(f"n_blocks must be >= 1, got {n_blocks}")
         err = _lib.mcgp_race_counts(
@@ -610,6 +630,8 @@ def race_counts(
     if err != 0:
         raise RuntimeError(f"race kernel launch failed: CUDA error {err}")
     race_counts.launches += 1
+    if sims_per_warp > 1:
+        count("race.packed")
     return counts
 
 
@@ -625,6 +647,36 @@ def _check_warps(warps_per_block: int | None) -> None:
 GRID_WAVES = 4
 # The block shapes the default picks from, in order of preference.
 BLOCK_SHAPES = (8, 12, 4)
+# Fields of up to PACKED_DRIVERS drivers take the kernels' packed instance:
+# PACKED_SIMS simulations a warp, each on 10 lanes of PACKED_CARS cars.
+PACKED_DRIVERS, PACKED_SIMS, PACKED_CARS = 20, 3, 2
+
+
+def kernel_tier(d: int) -> tuple[int, int]:
+    """(cars per lane, simulations per warp) of the kernel instance that
+    runs a field of d drivers, as `csrc/race_kernel.cu` chooses it (`build`
+    checks that the library agrees): the packed (PACKED_CARS, PACKED_SIMS)
+    up to PACKED_DRIVERS, else (ceil(d / 32), 1)."""
+    return (PACKED_CARS, PACKED_SIMS) if d <= PACKED_DRIVERS else (-(-d // 32), 1)
+
+
+def library_tier(lib, d: int) -> tuple[int, int]:
+    """(cars per lane, simulations per warp) of the instance that a loaded
+    library runs a field of d drivers on, as the library reports it. A
+    library from before the packed instance (`profile_kernel --against` an
+    older source) reports nothing: it runs one simulation a warp of
+    ceil(d / 32) cars a lane."""
+    if not hasattr(lib, "mcgp_sims_per_warp"):
+        return -(-d // 32), 1
+    return lib.mcgp_cars_per_lane(d), lib.mcgp_sims_per_warp(d)
+
+
+def grid_blocks(n_sims: int, sims_per_warp: int, warps_per_block: int, most: int) -> int:
+    """The blocks of a launch of n_sims simulations on an instance of
+    `sims_per_warp` simulations a warp: enough for one warp per
+    `sims_per_warp` simulations, and at most `most`."""
+    warps = -(-n_sims // sims_per_warp)
+    return min(-(-warps // warps_per_block), most)
 
 
 @functools.lru_cache(maxsize=None)
@@ -648,7 +700,7 @@ def launch_shape(
 
     The default block shape is the one of BLOCK_SHAPES that keeps the most
     warps on an SM at once: registers and the (d, d) shared histogram set
-    that number per field width (ceil(d / 32) cars per lane). A full launch
+    that number per field width (the instance of `kernel_tier`). A full launch
     is GRID_WAVES whole waves of resident blocks, so no partial wave idles
     SMs at the end (the warps walk the simulations with a grid stride, so
     the grid only sets the balance, never the counts)."""
@@ -713,9 +765,9 @@ def season_counts(
     laps_t = torch.tensor(laps, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         warps_per_block, full_grid = launch_shape(dev, d, warps_per_block, season=True)
-        if blocks_per_race is None:
-            blocks_per_race = full_grid
-        blocks_per_race = min(blocks_per_race, -(-n_sims_per_race // warps_per_block))
+        sims_per_warp = library_tier(_lib, d)[1]
+        blocks_per_race = grid_blocks(n_sims_per_race, sims_per_warp, warps_per_block,
+                                      full_grid if blocks_per_race is None else blocks_per_race)
         if not 1 <= blocks_per_race <= 2**31 - 1:
             raise ValueError(f"blocks_per_race must be >= 1, got {blocks_per_race}")
         err = _lib.mcgp_season_counts(
@@ -727,6 +779,8 @@ def season_counts(
     if err != 0:
         raise RuntimeError(f"season kernel launch failed: CUDA error {err}")
     season_counts.launches += 1
+    if sims_per_warp > 1:
+        count("race.packed", n_races)
     return counts
 
 

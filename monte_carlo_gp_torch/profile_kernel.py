@@ -24,7 +24,8 @@ And on the synthetic 2024 season (20 races, 44 to 78 laps):
     for several blocks per race, taken in turns with the 20 single-race
     launches of the same races, with a check that the counts do not change.
 
-And on wide fields (20, 40, 80 and 128 drivers: one to four cars per lane):
+And on wide fields (20, 40, 80 and 128 drivers: the packed instance, then
+one to four cars per lane):
 
   * the race kernel's time for blocks of 8, 12 and 4 warps (those that
     fit at the width), each with the grid
@@ -49,12 +50,15 @@ non-zero without one. Two shorter runs:
 `--mix` prints only the kernels' mix. `--against` builds OLD.cu (another
 version of `csrc/race_kernel.cu`) into a library of its own and times it
 and the current kernels in turns (old, new, new, old) on K1 at 20 drivers
-(the Bahrain 2024 plan, 57 laps, 1,048,576 simulations) and at 40, 80 and
-128 (57 laps, 262,144), and on K2 on the golden file's synthetic 2024
-season (10,000 and 262,144 simulations per race) and wide season (65,536),
-with a check that both give the same counts, and the mix of both. Each
-library's default launch shape comes from its own occupancy query (0 blocks
-for a block shape it cannot launch).
+(the Bahrain 2024 plan, 57 laps, 1,048,576 simulations) and at 21, 40, 80
+and 128 (57 laps, 262,144), and on K2 on the golden file's synthetic 2024
+season (10,000, 262,144 and 1,048,576 simulations per race), its wide
+season (65,536) and the same lap counts with fields of 32, 26, 24 and 21
+drivers padded to 32 (262,144: `season_kernel<1>`), with a check that both
+give the same counts, and the mix of both. Each library's default launch
+shape comes from its own occupancy query (0 blocks for a block shape it
+cannot launch), and its grid from the instance it reports
+(`race_kernel.library_tier`).
 """
 
 from __future__ import annotations
@@ -89,15 +93,19 @@ SEASON_SEED = 42 * 1_000_003 + SEASON
 # whole waves of resident blocks compared
 WIDE_SHAPES = ((20, 1_048_576), (40, 262_144), (80, 262_144), (128, 262_144))
 WIDE_WARPS, WIDE_WAVES, WIDE_LAPS = (8, 12, 4), (1, 2, 4), 57
-# a field width of each tier of cars per lane, R = 1..4
-TIER_WIDTHS = (20, 40, 80, 128)
+# a field width of each kernel instance: the packed one (20), then R = 1..4
+# cars per lane
+TIER_WIDTHS = (20, 32, 40, 80, 128)
 # the comparison in turns: (label, drivers, simulations) of K1 and
 # (label, simulations per race) of K2
-AGAINST_K1 = (("K1 D=20 main shape", 20, 1_048_576), ("K1 D=40", 40, 262_144),
-              ("K1 D=80", 80, 262_144), ("K1 D=128", 128, 262_144))
+AGAINST_K1 = (("K1 D=20 main shape", 20, 1_048_576), ("K1 D=21", 21, 262_144),
+              ("K1 D=40", 40, 262_144), ("K1 D=80", 80, 262_144),
+              ("K1 D=128", 128, 262_144))
 AGAINST_K2 = (("K2 2024 season", "k2_season2024", 10_000),
               ("K2 2024 season", "k2_season2024", 262_144),
-              ("K2 wide season", "k2_wide_season", 65_536))
+              ("K2 2024 season", "k2_season2024", 1_048_576),
+              ("K2 wide season", "k2_wide_season", 65_536),
+              ("K2 season of 21-32", (32, 26, 24, 21), 262_144))
 
 # The classes of the SASS opcode mix; an opcode of none of them (and not a
 # NOP) counts as integer work (IMAD, IADD3, ISETP, LOP3, SHF, LEA, SEL, MOV,
@@ -116,7 +124,7 @@ SASS_CLASSES = {
 }
 _SASS_CLASS = {op: cls for cls, ops in SASS_CLASSES.items() for op in ops}
 _SASS_OPCODE = re.compile(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]*)")
-_KERNEL = re.compile(r"(race_kernel|season_kernel)ILi(\d)E")
+_KERNEL = re.compile(r"(race_kernel|season_kernel)ILi(\d)E(?:Li(\d)E)?")
 
 
 def card() -> str:
@@ -126,10 +134,17 @@ def card() -> str:
     ).stdout.strip().splitlines()[0]
 
 
+def instance_name(kernel: str, cars: int, sims: int) -> str:
+    """`race_kernel<R>` of R cars a lane and one simulation a warp, or
+    `race_kernel<R, G>` of G simulations a warp (and `season_kernel` alike)."""
+    return f"{kernel}<{cars}>" if sims == 1 else f"{kernel}<{cars}, {sims}>"
+
+
 def kernel_name(mangled: str) -> str | None:
-    """`race_kernel<R>` or `season_kernel<R>` of a mangled kernel name."""
+    """`race_kernel<R>`, `season_kernel<R>` or their packed `<R, G>` of a
+    mangled kernel name."""
     m = _KERNEL.search(mangled)
-    return f"{m[1]}<{m[2]}>" if m else None
+    return instance_name(m[1], int(m[2]), int(m[3] or 1)) if m else None
 
 
 def sass_mix(sass: str) -> dict[str, dict[str, int]]:
@@ -170,8 +185,9 @@ def kernel_facts(dev, ptxas: dict, d: int, season: bool) -> dict:
     shape and the warps resident on an SM at that shape."""
     from monte_carlo_gp_torch.ops import race_kernel as rk
 
-    name = f"{'season' if season else 'race'}_kernel<{-(-d // 32)}>"
+    kernel = "season_kernel" if season else "race_kernel"
     warps, _ = rk.launch_shape(dev, d, season=season)
+    name = instance_name(kernel, *rk.library_tier(rk._lib, d))
     per_sm = rk.blocks_per_sm(dev.index or 0, d, warps, season)
     return {"kernel": name, **ptxas.get(name, {}), "drivers": d, "warps_per_block": warps,
             "blocks_per_sm": per_sm, "resident_warps_per_sm": per_sm * warps}
@@ -277,7 +293,13 @@ def compare_against(dev, against: Path, where: str) -> dict:
         runs.append((f"{label}, {laps} laps, {n} sims",
                      functools.partial(launch, pmat, scal, grid_log, laps, n, seed=0)))
     for label, case, n in AGAINST_K2:
-        launch, (pmat_s, scal_s, grid_log_s, laps, seeds) = golden.case_inputs(case, dev, season)
+        # a golden case by name, or the golden laps with wide fields of these widths
+        if isinstance(case, str):
+            launch, args = golden.case_inputs(case, dev, season)
+        else:
+            laps = [int(x) for x in season["season2024_laps"]]
+            launch, args = rk.season_counts, golden.padded_season(case, laps, dev)
+        pmat_s, scal_s, grid_log_s, laps, seeds = args
         runs.append((f"{label}, {len(laps)} races x {n} sims",
                      functools.partial(launch, pmat_s, scal_s, grid_log_s, laps, n, seeds)))
     rows = []

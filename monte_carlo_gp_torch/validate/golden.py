@@ -99,11 +99,18 @@ def case_inputs(name: str, device, season: dict[str, np.ndarray]):
         seeds = [philox.fold_in(SEASON_SEED, r) for r in range(len(laps))]
         return rk.season_counts, (*inputs, laps, seeds)
     if name == "k2_wide_season":
-        widths = [WIDE_SEASON_WIDTHS[r % len(WIDE_SEASON_WIDTHS)] for r in range(len(laps))]
-        pmat_s, scal_s, grid_log_s, _ = rk.pack_season_inputs([wide_field(w, device) for w in widths])
-        seeds = [philox.fold_in(WIDE_SEASON_SEED, r) for r in range(len(laps))]
-        return rk.season_counts, (pmat_s, scal_s, grid_log_s, laps, seeds)
+        return rk.season_counts, padded_season(WIDE_SEASON_WIDTHS, laps, device)
     raise ValueError(f"no golden case {name!r}; the cases are {CASES}")
+
+
+def padded_season(widths, laps: list[int], device, seed: int = WIDE_SEASON_SEED):
+    """K2's arguments but the simulation count for a season of `laps` with
+    wide fields of `widths` drivers in turn, padded to the widest, race r
+    at `fold_in(seed, r)`."""
+    fields = [wide_field(widths[r % len(widths)], device) for r in range(len(laps))]
+    pmat_s, scal_s, grid_log_s, _ = rk.pack_season_inputs(fields)
+    seeds = [philox.fold_in(seed, r) for r in range(len(laps))]
+    return pmat_s, scal_s, grid_log_s, laps, seeds
 
 
 def run_case(name: str, device, season: dict[str, np.ndarray], n_sims: int) -> torch.Tensor:

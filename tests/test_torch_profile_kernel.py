@@ -84,6 +84,10 @@ def test_ptxas_report_reads_registers_and_spills_per_kernel():
 @pytest.mark.parametrize("mangled, name", [
     ("_ZN12_GLOBAL__N_111race_kernelILi3EEEvPKfS2_S2_Piiijjjj", "race_kernel<3>"),
     ("_ZN12_GLOBAL__N_113season_kernelILi1EEEvPKfS2_S2_PKiPKjPiijj", "season_kernel<1>"),
+    ("_ZN12_GLOBAL__N_111race_kernelILi1ELi1EEEvPKfS2_S2_Piiijjjj", "race_kernel<1>"),
+    ("_ZN12_GLOBAL__N_111race_kernelILi2ELi3EEEvPKfS2_S2_Piiijjjj", "race_kernel<2, 3>"),
+    ("_ZN12_GLOBAL__N_113season_kernelILi2ELi3EEEvPKfS2_S2_PKiPKjPiijj", "season_kernel<2, 3>"),
+    ("_ZN12_GLOBAL__N_113season_kernelILi4ELi1EEEvPKfS2_S2_PKiPKjPiijj", "season_kernel<4>"),
     ("_Z10other_kernelv", None),
 ])
 def test_kernel_name_demangles_the_race_kernels(mangled, name):

@@ -23,6 +23,7 @@ from jax.experimental.pallas import tpu as pltpu
 from monte_carlo_gp_torch.config import make_sim_params
 from monte_carlo_gp_torch.ops import race_kernel as rk
 from monte_carlo_gp_torch.ops.philox import ZeroBits
+from monte_carlo_gp_torch.utils.profiling import RECORDER
 from monte_carlo_gp_tpu.config import make_sim_params as jax_make_sim_params
 
 torch.set_num_threads(2)
@@ -215,6 +216,77 @@ def test_wrapper_takes_the_plain_version_for_cpu_tensors_without_counting():
     want = rk.race_counts_plain(pmat, scal, grid_log, 12, 256, seed=4)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert rk.race_counts.launches == before
+
+
+def test_plain_path_counts_no_packed_launch():
+    """The CPU wrappers run the plain version at D = 20, where a card takes
+    the packed instance: neither counts `race.packed`."""
+    pmat, scal, grid_log = rk.pack_inputs(make_sim_params(**stress_fields()))
+    before = RECORDER.counters.get("race.packed", 0)
+    rk.race_counts(pmat, scal, grid_log, 6, 32, seed=4)
+    pair = lambda t: torch.stack([t, t])
+    rk.season_counts(pair(pmat), pair(scal), pair(grid_log), [6, 5], 32, [1, 2])
+    assert RECORDER.counters.get("race.packed", 0) == before
+
+
+@pytest.mark.parametrize("d, tier", [
+    (1, (2, 3)), (2, (2, 3)), (10, (2, 3)), (19, (2, 3)), (20, (2, 3)),
+    (21, (1, 1)), (32, (1, 1)), (33, (2, 1)), (64, (2, 1)), (65, (3, 1)), (96, (3, 1)),
+    (97, (4, 1)), (128, (4, 1)),
+])
+def test_kernel_tier_is_chosen_from_the_width(d, tier):
+    """(cars per lane, simulations per warp): the packed instance at 1-20
+    drivers, one simulation a warp of ceil(d / 32) cars a lane above, as
+    `csrc/race_kernel.cu` dispatches."""
+    assert rk.kernel_tier(d) == tier
+
+
+class _Library:
+    """The two instance queries of a race-kernel library, packing fields of
+    up to `packed` drivers."""
+
+    def __init__(self, packed):
+        self.packed = packed
+
+    def mcgp_cars_per_lane(self, d):
+        return 2 if d <= self.packed else -(-d // 32)
+
+    def mcgp_sims_per_warp(self, d):
+        return 3 if d <= self.packed else 1
+
+
+@pytest.mark.parametrize("packed, agrees", [(20, True), (19, False), (21, False), (0, False)])
+def test_a_library_of_another_instance_is_refused(packed, agrees):
+    """The wrapper loads the library only where it runs every width on the
+    instance `kernel_tier` gives."""
+    if agrees:
+        rk.check_instances(_Library(packed))
+    else:
+        with pytest.raises(RuntimeError, match="another instance"):
+            rk.check_instances(_Library(packed))
+
+
+def test_a_library_from_before_the_packed_instance_runs_one_simulation_a_warp():
+    """A library that reports no instance (an older source, timed against
+    the current one) is launched as it was: ceil(d / 32) cars a lane, one
+    simulation a warp, at every width."""
+    assert [rk.library_tier(object(), d) for d in (1, 20, 21, 33, 128)] == [
+        (1, 1), (1, 1), (1, 1), (2, 1), (4, 1)]
+    assert rk.library_tier(_Library(20), 20) == rk.kernel_tier(20) == (2, 3)
+
+
+@pytest.mark.parametrize("d, n_sims, warps_per_block, most, blocks", [
+    (20, 1, 8, 1056, 1), (20, 24, 8, 1056, 1), (20, 25, 8, 1056, 2),
+    (20, 3 * 8 * 5, 8, 1056, 5), (20, 3 * 8 * 5 + 1, 8, 1056, 6),
+    (20, 2, 1, 1056, 1), (20, 4, 1, 1056, 2), (20, 10_000, 3, 7, 7),
+    (20, 1 << 20, 8, 1056, 1056), (20, 1 << 20, 8, 10**9, 43_691),
+    (21, 8, 8, 1056, 1), (21, 9, 8, 1056, 2), (21, 1 << 20, 8, 10**9, 131_072),
+])
+def test_grid_blocks_count_warps_of_the_tier(d, n_sims, warps_per_block, most, blocks):
+    """The launches' blocks: ceil(n_sims / 3) warps at 1-20 drivers, n_sims
+    above, in blocks of `warps_per_block`, at most `most`."""
+    sims_per_warp = rk.kernel_tier(d)[1]
+    assert rk.grid_blocks(n_sims, sims_per_warp, warps_per_block, most) == blocks
 
 
 @pytest.mark.parametrize(

@@ -18,6 +18,7 @@ from monte_carlo_gp_torch.config import make_sim_params
 from monte_carlo_gp_torch.ops import philox
 from monte_carlo_gp_torch.ops import race_kernel as rk
 from monte_carlo_gp_torch.parallel.mesh import make_mesh
+from monte_carlo_gp_torch.utils.profiling import RECORDER
 from monte_carlo_gp_torch.validate import golden
 
 # only last-bit differences of log/cos between the kernel and the plain
@@ -131,6 +132,103 @@ def test_kernel_rejects_wide_fields(cuda_device):
         rk.race_counts(pmat, scal, grid_log, 10, 64)
 
 
+# ---- the packed instance: three simulations a warp, fields of up to 20 ----------
+
+
+def _packed_launches():
+    return RECORDER.counters.get("race.packed", 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 2, 4, 3 * 1_000 + 1])
+@pytest.mark.parametrize("d", [1, 2, 7, 10, 11, 19, 20])
+def test_packed_instance_matches_plain_version(d, n, cuda_device):
+    """K1 at every width of the packed instance and at simulation counts
+    that fill a warp's three segments partly: every simulation counted
+    once; at 1, 2 and 4 simulations the plain version's counts exactly (a
+    cell holds at most 4, so the kernel bound would pass anything) and the
+    whole launch bitwise its simulations launched one at a time (segments 1
+    and 2 of a warp against segment 0 of their own); at 3,001 the plain
+    version's counts within the kernel bound."""
+    assert rk.kernel_tier(d) == (2, 3)
+    kw = field(d, **(WET_CHAOS if d in (7, 19) else {}))
+    pmat, scal, grid_log = rk.pack_inputs(make_sim_params(**kw, device=cuda_device))
+    laps = 15
+    before = _packed_launches()
+    kernel = rk.race_counts(pmat, scal, grid_log, laps, n, seed=77)
+    torch.cuda.synchronize()
+    assert _packed_launches() == before + 1
+    plain = rk.race_counts_plain(pmat, scal, grid_log, laps, n, seed=77)
+    assert bool((kernel.sum(1) == n).all()) and bool((kernel.sum(0) == n).all())
+    if n > 4:
+        assert (kernel.long() - plain).abs().max().item() <= max(MAX_ABS_COUNT_ERR,
+                                                                 MAX_ABS_PROB_ERR * n)
+    else:
+        assert torch.equal(kernel.long().cpu(), plain.cpu())
+        alone = sum(rk.race_counts(pmat, scal, grid_log, laps, 1, seed=77, sim_offset=i)
+                    for i in range(n))
+        assert torch.equal(kernel, alone)
+
+
+@pytest.mark.gpu
+def test_packed_season_race_equals_single_race_kernel_bitwise(cuda_device):
+    """K2's race r equals K1 at race r's seed bit for bit at D = 20, with a
+    simulation count that leaves the last warp's third segment empty, and
+    counts its races as packed."""
+    pmat_s, scal_s, grid_log_s, seeds = season_inputs(cuda_device, **WET_CHAOS)
+    laps, n = [57, 44, 78], 5_002
+    before = _packed_launches()
+    season = rk.season_counts(pmat_s, scal_s, grid_log_s, laps, n, seeds)
+    torch.cuda.synchronize()
+    assert _packed_launches() == before + 3
+    for r in range(3):
+        single = rk.race_counts(pmat_s[r], scal_s[r], grid_log_s[r], laps[r], n, seed=seeds[r])
+        assert torch.equal(season[r], single), r
+
+
+@pytest.mark.gpu
+def test_packed_instance_ignores_launch_shape(cuda_device):
+    """Warps per block, blocks and blocks per race do not move the packed
+    instance's counts, at a simulation count that is not a multiple of 3."""
+    pmat, scal, grid_log = rk.pack_inputs(make_sim_params(**field(20), device=cuda_device))
+    n = 4_001
+    runs = [rk.race_counts(pmat, scal, grid_log, 20, n, seed=3, warps_per_block=w, n_blocks=b)
+            for w, b in ((None, None), (8, None), (3, 7), (1, 1), (16, 2), (12, None))]
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    pmat_s, scal_s, grid_log_s, seeds = season_inputs(cuda_device)
+    laps = [20, 15, 25]
+    seasons = [rk.season_counts(pmat_s, scal_s, grid_log_s, laps, n, seeds, warps_per_block=w,
+                                blocks_per_race=b)
+               for w, b in ((None, None), (3, 7), (16, 1), (1, 5))]
+    assert all(torch.equal(seasons[0], r) for r in seasons[1:])
+
+
+@pytest.mark.gpu
+def test_the_library_runs_the_instance_kernel_tier_gives(cuda_device):
+    rk.build()
+    rk.check_instances(rk._lib)
+    assert [rk._lib.mcgp_sims_per_warp(d) for d in (1, 20, 21, 32, 128)] == [3, 3, 1, 1, 1]
+
+
+@pytest.mark.gpu
+def test_twenty_one_drivers_take_the_wide_instance(cuda_device):
+    """D = 21 runs `race_kernel<1>`, one simulation a warp, as before the
+    packed instance: no packed launch is counted, and its counts match the
+    plain version and do not depend on the launch shape."""
+    assert rk.kernel_tier(21) == (1, 1)
+    pmat, scal, grid_log = rk.pack_inputs(make_sim_params(**field(21), device=cuda_device))
+    n = 8_192
+    before = _packed_launches()
+    kernel = rk.race_counts(pmat, scal, grid_log, 30, n, seed=123)
+    torch.cuda.synchronize()
+    assert _packed_launches() == before
+    plain = rk.race_counts_plain(pmat, scal, grid_log, 30, n, seed=123)
+    assert (kernel.long() - plain).abs().max().item() <= max(MAX_ABS_COUNT_ERR, MAX_ABS_PROB_ERR * n)
+    assert bool((kernel.sum(1) == n).all()) and bool((kernel.sum(0) == n).all())
+    shaped = rk.race_counts(pmat, scal, grid_log, 30, n, seed=123, warps_per_block=3, n_blocks=5)
+    assert torch.equal(kernel, shaped)
+
+
 # ---- K2, the season kernel ----------------------------------------------------
 
 SEASON_SEED = 2024
@@ -198,13 +296,11 @@ def test_season_kernel_rejects_wide_fields(cuda_device):
         rk.season_counts(pmat_s, scal_s, grid_log_s, [10, 10], 64, seeds)
 
 
-@pytest.mark.gpu
-def test_wide_season_matches_plain_and_single_races(cuda_device):
-    """Fields of 80, 64, 40 and 20 drivers padded to 80 (three cars per
-    lane): K2 against its plain version, race r bitwise equal to K1 at
-    race r's seed, and two launch shapes bitwise equal."""
-    widths, laps, n = (80, 64, 40, 20), [20, 15, 25, 12], 2_048
-    pmat_s, scal_s, grid_log_s, seeds = season_inputs(cuda_device, widths=widths)
+def _check_wide_season(widths, laps, n, device, **overrides):
+    """K2 on fields of `widths` drivers padded to the widest: against its
+    plain version, race r bitwise equal to K1 at race r's seed, and two
+    launch shapes bitwise equal."""
+    pmat_s, scal_s, grid_log_s, seeds = season_inputs(device, widths=widths, **overrides)
     kernel = rk.season_counts(pmat_s, scal_s, grid_log_s, laps, n, seeds)
     plain = rk.season_counts_plain(pmat_s, scal_s, grid_log_s, laps, n, seeds)
     assert (kernel.long() - plain).abs().max().item() <= max(MAX_ABS_COUNT_ERR, MAX_ABS_PROB_ERR * n)
@@ -215,6 +311,23 @@ def test_wide_season_matches_plain_and_single_races(cuda_device):
     shaped = rk.season_counts(pmat_s, scal_s, grid_log_s, laps, n, seeds,
                               warps_per_block=3, blocks_per_race=11)
     assert torch.equal(kernel, shaped)
+
+
+@pytest.mark.gpu
+def test_wide_season_matches_plain_and_single_races(cuda_device):
+    """Fields of 80, 64, 40 and 20 drivers padded to 80 (three cars per
+    lane)."""
+    _check_wide_season((80, 64, 40, 20), [20, 15, 25, 12], 2_048, cuda_device)
+
+
+@pytest.mark.gpu
+def test_season_of_up_to_32_drivers_matches_plain_and_single_races(cuda_device):
+    """Fields of 32, 26, 21 and 24 drivers padded to 32: `season_kernel<1>`,
+    one car a lane and one simulation a warp, the only instance that no
+    field of 20 or of more than 32 drivers runs; the second race wet, with
+    frequent race-control events."""
+    assert rk.kernel_tier(32) == (1, 1)
+    _check_wide_season((32, 26, 21, 24), [30, 44, 25, 12], 3_001, cuda_device, **WET_CHAOS)
 
 
 @pytest.mark.gpu

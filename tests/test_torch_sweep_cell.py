@@ -186,7 +186,7 @@ def test_the_cell_is_found_by_name():
     assert set(cell.limits) == {"pole", "identity", "configs", "order", "result", "scores",
                                 "podium"}
     assert {m["name"] for m in cell.end_to_end} == {"season_s", "setup_s"}
-    assert {m["name"] for m in cell.per_layer} == set(METRICS)
+    assert {m["name"] for m in cell.per_layer} == {*METRICS, "packed_races.sweep"}
     for m in cell.per_layer:
         assert m["moves"] == "season_s" and callable(spec.metric_reader(m["name"]))
     kind = harness.driver(cell.traffic["kind"])

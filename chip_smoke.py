@@ -41,21 +41,17 @@ that each went through its kernel:
   * the alternative qualifying models and the server: (a) the Bayesian
     model's HMC fit of the synthetic archive (Bahrain 2024) on the card at
     its default budget, through `F1Predictor(quali_model="bayesian")`, as
-    three launches of the HMC kernel's stage entry (two warmup stages, then
-    sampling; no per-transition or logp launch, no graph replayed), bitwise
-    equal to three more kernel fits of the same seed; at 8 iterations of a
-    recorded fit the one-transition entry started from the stage trace's
-    state, bitwise the trace's next state, and against the plain version
-    per call (logp, gradient) and per transition; the host replay of both
-    warmup stages' dual averaging and Welford variance against the
-    kernel's; the eager fit of the same seed and three fits with every
-    transition a replay of one captured CUDA graph (the yardstick), the
-    graphed fit bitwise the eager fit and its peak reserved memory not
-    growing; the kernel's one-transition entry and the graph's replay
-    timed per transition in turns, and the sampling stage's launch
-    (bitwise the recorded stage); the kernel fit within
-    total variation 0.05 of a CPU fit and of the graphed fit in its pole
-    distribution; (b)
+    three launches of the HMC kernel (two warmup stages, then sampling; no
+    per-transition or logp launch), bitwise equal to three more kernel fits
+    of the same seed; at 8 iterations of a recorded fit the one-transition
+    entry started from the stage trace's state, bitwise the trace's next
+    state, and against the plain version per call (logp, gradient) and per
+    transition; the host replay of both warmup stages' dual averaging and
+    Welford variance against the kernel's; the eager fit of the same seed
+    (the plain version); the kernel's one-transition entry timed against
+    the eager transition, and the sampling stage's launch (bitwise the
+    recorded stage); the kernel fit within total variation 0.05 of a CPU
+    fit and of the eager fit in its pole distribution; (b)
     `python -m monte_carlo_gp_torch.serve` on the card, with the Elo and
     then the Bayesian model: the ready time, 50 requests at 10,000
     simulations and 10 at 1,048,576, their p50/p95 latency, same-seed bodies
@@ -88,7 +84,7 @@ the plain version, their times and their bounds, the golden check, their
 registers (ptxas) and the warps resident on an SM at their launch shape
 (with a `wide` list of the same readings at each wide field, the
 sharded entry's readings at each shard count, the HMC kernel's stage and
-per-transition times beside the graph's, shared memory and blocks resident,
+per-transition times beside the eager transition's, shared memory and blocks resident,
 and each kernel's launches on every path that drives it, `launches_by_path`). Without a CUDA device it
 exits non-zero and prints no result.
 """
@@ -185,8 +181,8 @@ XLA_WEEKEND_SIMS, XLA_SEASON_SIMS = 262_144, 2_048
 BAYES_POLE_TV, BAYES_ACCEPT = 0.05, (0.6, 0.99)
 # sample_posterior's leapfrog steps; the transitions of the first kernel
 # fit whose inputs the per-call check runs at (both warmup stages and the
-# sampling phase); launches per timing turn of the kernel and the graph, and
-# calls of the eager transition timed
+# sampling phase); launches per timing turn of the kernel's one-transition
+# entry, and calls of the eager transition timed
 BAYES_LEAPFROG = 48
 HMC_RECORD_AT = (0, 250, 499, 500, 999, 1000, 1500, 1999)
 HMC_TIME_CALLS, HMC_PLAIN_CALLS = 200, 5
@@ -1150,29 +1146,19 @@ def hmc_bytes(k: int, chains: int, iters: int = 1, trace: bool = False) -> int:
     return n_in + n_out
 
 
-def hmc_times(dev, kd, state: dict, n_leapfrog: int) -> dict:
-    """ms per transition at one recorded state, taken in turns (graph,
-    kernel, kernel, graph): the kernel's one-transition entry, the captured
-    graph's replay of the eager transition (its inputs copied in, as in a
-    graphed fit); then the eager transition on the card, the plain
+def hmc_times(kd, state: dict, n_leapfrog: int) -> dict:
+    """ms per transition at one recorded state: the kernel's one-transition
+    entry in two turns, then the eager transition on the card, the plain
     version."""
-    from monte_carlo_gp_torch.models import bayesian as B
     from monte_carlo_gp_torch.ops import hmc_kernel as H
 
     args = [state[k] for k in ("theta", "lp", "eps", "inv_mass", "z", "u_jit", "u_acc")]
-    times = {"graph": [], "kernel": []}
     with torch.inference_mode():
-        graphed = B.GraphedTransition(kd.logp_fn, kd.grad_fn, n_leapfrog, *args[0].shape, dev)
-        try:
-            calls = {"graph": lambda: graphed(*args),
-                     "kernel": lambda: H.hmc_transition(kd, *args, n_leapfrog)}
-            for name in ("graph", "kernel", "kernel", "graph"):
-                times[name].append(time_kernel_ms(calls[name], HMC_TIME_CALLS))
-        finally:
-            graphed.close()
+        kernel = [time_kernel_ms(lambda: H.hmc_transition(kd, *args, n_leapfrog), HMC_TIME_CALLS)
+                  for _ in range(2)]
         plain = time_kernel_ms(lambda: H.hmc_transition_plain(
             *args[:4], kd.logp_fn, kd.grad_fn, n_leapfrog, *args[4:]), HMC_PLAIN_CALLS)
-    return {"kernel_ms": times["kernel"], "graph_ms": times["graph"], "plain_ms": plain}
+    return {"kernel_ms": kernel, "plain_ms": plain}
 
 
 def hmc_stage_times(kd, stage: dict, n_leapfrog: int) -> dict:
@@ -1204,23 +1190,19 @@ def bayes_phase(dev, design, cpu_run) -> dict:
     """(a) The Bayesian qualifying model on the card: the weekend's plan
     through `F1Predictor(quali_model="bayesian")`, whose HMC fit of the
     synthetic archive (Bahrain 2024, `design`) runs on the card at the
-    default budget as three launches of the HMC kernel's stage entry (no
-    per-transition or logp launch, no graph replay); three more kernel fits
+    default budget as three launches of the HMC kernel (no per-transition
+    or logp launch); three more kernel fits
     of the same seed, bitwise equal to it, the first recording its stages
     and 8 iterations: the one-transition entry from each recorded state
     bitwise the stage trace's next state, and against the plain version per
     call and per transition; the host replay of both warmup stages'
     adaptation against the kernel's (`validate/hmc.py`); the same seed's
-    eager fit on the card (the plain version) and three graphed fits
-    (`sample_posterior_graphed`, the yardstick), the first bitwise the
-    eager fit in `raw` and `accept_rate`, all three bitwise equal, the
-    device memory reserved at their peak not growing after the first; the
-    kernel's one-transition entry and the graph per transition in turns at
-    a sampled state, and the sampling stage's launch, bitwise the recorded
-    stage; the CPU fit of the same seed
+    eager fit on the card (the plain version); the kernel's one-transition
+    entry against the eager transition at a sampled state, and the sampling
+    stage's launch, bitwise the recorded stage; the CPU fit of the same seed
     that `cpu_run` (`start_cpu_fit`) ran meanwhile; the kernel fit's pole
     distribution within total variation 0.05 of the CPU fit's and of the
-    graphed fit's; then the weekend's Monte Carlo through K1 at the server's
+    eager fit's; then the weekend's Monte Carlo through K1 at the server's
     default count, the in-process result the Bayesian server is held to.
     Every check raises. Returns the readings, that result (`result`) and
     the kernels line's HMC entry (`kernel`)."""
@@ -1242,10 +1224,8 @@ def bayes_phase(dev, design, cpu_run) -> dict:
     iters = model.num_warmup + model.num_samples
     before = RECORDER.copy()
     H.hmc_stage.launches = H.hmc_transition.launches = H.hmc_logp.launches = 0
-    B.transition_replays = 0
     plan, prepare_ms = plain_ms_of(lambda: predictor.prepare_weekend(2024, "Bahrain"))
-    launches = (H.hmc_stage.launches, H.hmc_transition.launches, H.hmc_logp.launches,
-                B.transition_replays)
+    launches = (H.hmc_stage.launches, H.hmc_transition.launches, H.hmc_logp.launches)
     fit_spans = RECORDER.since(before).totals
     fit_s = sum(fit_spans[k] for k in ("fit.design", "fit.chains", "fit.posterior"))
     post = model._posterior
@@ -1253,10 +1233,10 @@ def bayes_phase(dev, design, cpu_run) -> dict:
                for f in design.__dataclass_fields__):
         raise AssertionError("the predictor fitted another archive than the CPU reference's")
     log(f"[bayes fit] HMC stage launches {launches[0]}, one-transition launches {launches[1]}, "
-        f"logp launches {launches[2]}, graph replays {launches[3]} in the Bayesian weekend's fit")
-    if launches != (3, 0, 0, 0):
+        f"logp launches {launches[2]} in the Bayesian weekend's fit")
+    if launches != (3, 0, 0):
         raise AssertionError(f"the Bayesian weekend's fit did not run as three stage launches of "
-                             f"the HMC kernel: (stage, transition, logp, graph) {launches}")
+                             f"the HMC kernel: (stage, transition, logp) {launches}")
 
     def fit(**kw):
         return plain_ms_of(lambda: B.sample_posterior(design, seed=model.seed, device=dev, **kw))
@@ -1290,19 +1270,7 @@ def bayes_phase(dev, design, cpu_run) -> dict:
     with hmc.recorded_transitions(()) as eager_rec:
         eager, eager_ms = fit(plain=True)
     eager_stage_ms = eager_rec.stages[2]["s"] * 1e3
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
-    graphed, graph_s, peaks, replays = [], [], [], []
-    for _ in range(3):
-        B.transition_replays = 0
-        g, ms = plain_ms_of(lambda: B.sample_posterior_graphed(design, seed=model.seed, device=dev))
-        graphed.append(g)
-        graph_s.append(ms / 1e3)
-        peaks.append(torch.cuda.max_memory_reserved(dev))
-        replays.append(B.transition_replays)
-    graph_is_eager = equal(graphed[0], eager)
-    graphs_same = all(equal(g, graphed[0]) for g in graphed[1:])
-    times = hmc_times(dev, kd, rec.states[-1], BAYES_LEAPFROG)
+    times = hmc_times(kd, rec.states[-1], BAYES_LEAPFROG)
     sampling = rec.stages[2]
     stage_times = hmc_stage_times(kd, sampling, BAYES_LEAPFROG)
 
@@ -1322,13 +1290,12 @@ def bayes_phase(dev, design, cpu_run) -> dict:
         b = B.quali_position_probs(other, plan.drivers, teams, circuit, seed)
         return 0.5 * sum(abs(a[d][0] - b[d][0]) for d in plan.drivers)
 
-    tv, tv_graph = pole_tv(cpu), pole_tv(graphed[0])
+    tv, tv_eager = pole_tv(cpu), pole_tv(eager)
     grid = np.array([plan.quali_probs[d] for d in plan.drivers])
     result, wall, k1, k2 = run_counted(rk, lambda: predictor.assemble_result(
         plan, predictor.simulate_plan(plan, SERVE_SIMS, seed=SERVE_SEED)))
     eager_s = eager_ms / 1e3
     kernel_ms = float(np.mean(times["kernel_ms"]))
-    graph_ms = float(np.mean(times["graph_ms"]))
     n, k, chains = kd.n_rows, kd.n_cols, post.raw.shape[0]
     n_samples = sampling["draws"][0].shape[0]
     stage_ms = float(np.mean(stage_times["ms"]))
@@ -1359,9 +1326,8 @@ def bayes_phase(dev, design, cpu_run) -> dict:
         f"({bound_by}: {f64:.4g} float64 operations over C's {nnz} non-zero counts of {k * k}, "
         f"{f32:.4g} float32); the eager sampling "
         f"stage {eager_stage_ms:.1f} ms. One transition: the entry "
-        f"{', '.join(f'{x:.4f}' for x in times['kernel_ms'])} ms (kernel turns; {HMC_TIME_CALLS} "
-        f"launches each) against the graph's {', '.join(f'{x:.4f}' for x in times['graph_ms'])} ms "
-        f"(graph turns) and the eager transition's {times['plain_ms']:.3f} ms, at iteration "
+        f"{', '.join(f'{x:.4f}' for x in times['kernel_ms'])} ms (two turns; {HMC_TIME_CALLS} "
+        f"launches each) against the eager transition's {times['plain_ms']:.3f} ms, at iteration "
         f"{HMC_RECORD_AT[-1]}'s state; bound {step_bound_ms * 1e6:.2f} ns ({step_bound_by}), the "
         f"row form's {rows_bound_ms * 1e6:.2f} ns ({rows_bound_by}); {facts} (largest over the "
         f"instances), {H.shared_bytes(k)} B shared memory, {blocks} block(s) of {H.WARPS * 32} "
@@ -1372,24 +1338,18 @@ def bayes_phase(dev, design, cpu_run) -> dict:
         f"accept decisions differing {check['decisions_differ']} "
         f"({check['decisions_differ_outside_margin']} outside |u - alpha| <= {hmc.ALPHA_MARGIN}); "
         f"within rtol {hmc.RTOL}, atol {hmc.ATOL} (theta' atol {hmc.THETA_ATOL}): {check['ok']}")
-    log(f"[bayes graph] the eager fit of the same seed on the card {eager_s:.3f} s "
-        f"({eager_s / iters * 1e3:.3f} ms per transition); three graphed fits "
-        f"{', '.join(f'{x:.3f}' for x in graph_s)} s (replays {replays}), the first bitwise the "
-        f"eager fit (raw and accept_rate): {graph_is_eager}, all bitwise equal {graphs_same}, max "
-        f"memory reserved after each {peaks} B; on the CPU {cpu_s:.3f} s (2 threads, in a process "
-        f"beside the card's fits); acceptance {np.round(post.accept_rate, 4).tolist()}, max split "
-        f"R-hat {rhat:.4f}; pole TV kernel vs CPU {tv:.4f}, kernel vs graph {tv_graph:.4f} (bound "
+    log(f"[bayes eager] the eager fit of the same seed on the card {eager_s:.3f} s "
+        f"({eager_s / iters * 1e3:.3f} ms per transition); on the CPU {cpu_s:.3f} s (2 threads, in "
+        f"a process beside the card's fits); acceptance {np.round(post.accept_rate, 4).tolist()}, "
+        f"max split R-hat {rhat:.4f}; pole TV kernel vs CPU {tv:.4f}, kernel vs eager "
+        f"{tv_eager:.4f} (bound "
         f"{BAYES_POLE_TV}); the weekend's grid rows sum to 1: "
         f"{np.allclose(grid.sum(axis=1), 1.0, atol=1e-6)}; K1 launches {k1}, K2 {k2} at "
         f"{SERVE_SIMS} sims; phase {time.perf_counter() - t0:.1f} s")
     lo, hi = BAYES_ACCEPT
     if not (same and check["ok"] and stage_times["bitwise"]):
         raise AssertionError("the HMC kernel is not reproducible or departs from its plain version")
-    if not (graph_is_eager and graphs_same and replays == [iters] * 3):
-        raise AssertionError("the graphed fit is not the eager fit replayed through its graph")
-    if max(peaks[1:]) > peaks[0]:
-        raise AssertionError(f"the device memory reserved grew over graphed fits: {peaks}")
-    if not (np.isfinite(post.raw).all() and tv < BAYES_POLE_TV and tv_graph < BAYES_POLE_TV
+    if not (np.isfinite(post.raw).all() and tv < BAYES_POLE_TV and tv_eager < BAYES_POLE_TV
             and np.all((post.accept_rate > lo) & (post.accept_rate < hi))
             and np.allclose(grid.sum(axis=1), 1.0, atol=1e-6) and (k1, k2) == (1, 0)):
         raise AssertionError("the Bayesian fit on the card failed a check")
@@ -1421,8 +1381,6 @@ def bayes_phase(dev, design, cpu_run) -> dict:
         "library_ms": None,
         "transition_ms": kernel_ms,
         "transition_ms_turns": times["kernel_ms"],
-        "graph_ms": graph_ms,
-        "graph_ms_turns": times["graph_ms"],
         "transition_plain_ms": times["plain_ms"],
         "transition_bound_ms": step_bound_ms,
         "transition_bound_ms_rows": rows_bound_ms,
@@ -1439,10 +1397,9 @@ def bayes_phase(dev, design, cpu_run) -> dict:
     return {"rows": n, "dim": int(post.raw.shape[2]), "fit_s": fit_s,
             "s_per_iteration": fit_s / iters, "launches": list(launches),
             "prepare_s": prepare_ms / 1e3, "again_s": again_s, "eager_s": eager_s,
-            "eager_s_per_transition": eager_s / iters, "graph_s": graph_s,
-            "graph_replays": replays, "graphed_equals_eager": graph_is_eager,
-            "max_memory_reserved": peaks, "cpu_s": cpu_s, "accept": post.accept_rate.tolist(),
-            "rhat": rhat, "pole_tv_vs_cpu": tv, "pole_tv_vs_graph": tv_graph,
+            "eager_s_per_transition": eager_s / iters, "cpu_s": cpu_s,
+            "accept": post.accept_rate.tolist(), "rhat": rhat, "pole_tv_vs_cpu": tv,
+            "pole_tv_vs_eager": tv_eager,
             "result": result, "kernel": kernel}
 
 
@@ -1453,8 +1410,8 @@ def batched_fits_phase(dev) -> dict:
     stage launches inside) and, twice, as `prepare_season_plans` takes it
     (the season's fits together: three launches per distinct S). The plans
     equal field by field, the batched seasons' launches 3 x the distinct S,
-    and each stage's device time from the profile (`hmc_kernel<S>` and
-    `hmc_kernel_batch<S>` per launch): the batched launches against the sum
+    and each stage's device time from the profile (`hmc_kernel<S>` per
+    launch): the batched launches against the sum
     of the per-fit launches of the same stage. Returns the readings for the
     HMC kernel's row."""
     from torch.profiler import ProfilerActivity, profile
@@ -1490,7 +1447,7 @@ def batched_fits_phase(dev) -> dict:
             per_stage[min(i // per, 2) if batch else i % 3] += e.time_range.elapsed_us() / 1e3
         # S, the kernel's template argument, from each launch's name
         slots = sorted({int(m[1]) for e in launches
-                        if (m := re.search(r"hmc_kernel(?:_batch)?<(\d+)>", e.name))})
+                        if (m := re.search(r"hmc_kernel<(\d+)>", e.name))})
         return {"plans": plans, "launches": H.hmc_stage.launches, "kernels": len(launches),
                 "stage_ms": per_stage,
                 "hmc_device_ms": profiling.device_times_us(prof, "hmc_kernel")[0] / 1e3,

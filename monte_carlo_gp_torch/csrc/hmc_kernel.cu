@@ -56,14 +56,15 @@
 //      in order), a fixed butterfly, + y^T y; then the float32 gradient,
 //      momentum and position updates, the scales broadcast from lanes 0-4
 //      by shuffles, and the next effects into shared memory;        barrier
-// Several fits at once. A fit's 4 chains fill 4 of the card's 132 SMs, and a
-// season's walk-forward fits do not depend on each other, so
-// mcgp_hmc_run_batch runs one stage of many fits in one launch
-// (hmc_kernel_batch): a block per chain of every fit, each block reading its
-// fit's Args from a table in device memory and running the same code
-// (run_chain) as that fit's own launch, so each chain's trace and result are
-// bitwise those of hmc_kernel. Fits of one launch share S, the template
-// argument; the dynamic shared memory is the largest fit's.
+// Every launch takes a table of fits. A fit's 4 chains fill 4 of the card's
+// 132 SMs, and a season's walk-forward fits do not depend on each other, so
+// mcgp_hmc_run runs one stage of any number of fits in one launch: a block
+// per chain of every fit, each block reading its fit's Args from the table
+// in device memory and running the same code (run_chain), so each chain's
+// trace and result are bitwise those of a launch of its fit alone. A lone
+// fit, the one-transition entry and the logp entry are tables of one. Fits
+// of one launch share S, the template argument; the dynamic shared memory
+// is the largest fit's.
 // Why float64. Near the posterior C eff ~ b to within colsum (|b_k| ~ 10^3,
 // |colsum_k| ~ 10), so float32 rounding of each term alone (~10^-4) times
 // 1/sigma^2 (up to ~10^3) would move the gradient far outside the plain
@@ -84,7 +85,7 @@ namespace {
 constexpr int kScalars = 5;  // team_mu and the four log-scales lead theta
 constexpr int kRanges = 4;   // ops/hmc_kernel.py: RANGES
 constexpr int kWarps = 4;    // ops/hmc_kernel.py: WARPS; warp w sums range w
-constexpr int kFitPtrs = 20;  // a fit's pointers in mcgp_hmc_run_batch (ops/hmc_kernel.py)
+constexpr int kFitPtrs = 20;  // a fit's pointers in mcgp_hmc_run (ops/hmc_kernel.py)
 static_assert(kWarps == kRanges, "one warp per range of the product");
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -97,7 +98,7 @@ struct Prior {
   float p0, p1, p2, p3;
 };
 
-// One launch's inputs and outputs (mcgp_hmc_run).
+// One fit's inputs and outputs in a launch (an entry of mcgp_hmc_run's table).
 struct Args {
   const double* counts;  // (k, k) C = A^T A, symmetric
   const double* bvec;    // (k,) b = A^T y
@@ -471,48 +472,28 @@ __device__ __forceinline__ void run_chain(const Args& a, const int chain) {
   }
 }
 
-// One fit: block b runs its chain b.
-template <int S>
-__global__ void __launch_bounds__(kWarps * 32) hmc_kernel(const Args a) {
-  run_chain<S>(a, blockIdx.x);
-}
-
-// Several fits of the same S in one launch: fits[f] is fit f's Args, its
-// chains the blocks after those of fits 0..f-1, each block running the same
-// code on its own fit's design, state, draws and trace as that fit's own
-// launch would.
+// One stage of the fits of one S: fits[f] is fit f's Args, its chains the
+// blocks after those of fits 0..f-1, each block running its own fit's
+// design, state, draws and trace.
 template <int S>
 __global__ void __launch_bounds__(kWarps * 32)
-    hmc_kernel_batch(const Args* __restrict__ fits, const int n_fits) {
+    hmc_kernel(const Args* __restrict__ fits, const int n_fits) {
   int f = 0, first = 0;
   while (f + 1 < n_fits && (int)blockIdx.x >= first + fits[f].chains) first += fits[f++].chains;
   run_chain<S>(fits[f], (int)blockIdx.x - first);
 }
 
+// One launch of hmc_kernel<S> over n_fits fits whose Args are at `fits` in
+// device memory, with `blocks` chains in all; `smem` the largest fit's shared
+// memory.
 template <int S>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const size_t smem = shared_bytes(a.s.k);
+cudaError_t launch(const Args* fits, int n_fits, int blocks, size_t smem, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         hmc_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  hmc_kernel<S><<<a.chains, kWarps * 32, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
-// One launch of hmc_kernel_batch<S> over n_fits fits whose Args are at
-// `fits` in device memory, with `blocks` chains in all; `smem` the largest
-// fit's shared memory.
-template <int S>
-cudaError_t launch_batch(const Args* fits, int n_fits, int blocks, size_t smem,
-                         cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        hmc_kernel_batch<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  hmc_kernel_batch<S><<<blocks, kWarps * 32, smem, stream>>>(fits, n_fits);
+  hmc_kernel<S><<<blocks, kWarps * 32, smem, stream>>>(fits, n_fits);
   return cudaGetLastError();
 }
 
@@ -544,19 +525,12 @@ R by_slots(int dim, F f, R fail) {
 }
 
 struct LaunchOp {
-  const Args* a;
-  cudaStream_t stream;
-  template <int S>
-  cudaError_t operator()() const { return launch<S>(*a, stream); }
-};
-
-struct BatchOp {
   const Args* fits;
   int n_fits, blocks;
   size_t smem;
   cudaStream_t stream;
   template <int S>
-  cudaError_t operator()() const { return launch_batch<S>(fits, n_fits, blocks, smem, stream); }
+  cudaError_t operator()() const { return launch<S>(fits, n_fits, blocks, smem, stream); }
 };
 
 struct QueryOp {
@@ -565,8 +539,8 @@ struct QueryOp {
   int operator()() const { return blocks_per_sm<S>(k); }
 };
 
-// The Args of one fit (mcgp_hmc_run's arguments), or the error that
-// refuses them.
+// The Args of one fit (an entry of mcgp_hmc_run's table), or the error
+// that refuses them.
 cudaError_t fill_args(Args& a, const double* counts, const double* bvec, double yty, int n, int t,
                       int d, int c, float prec0, float prec1, float prec2, float prec3, int adapt,
                       double t0, double gamma, double kappa, float target, float log10,
@@ -644,10 +618,20 @@ extern "C" int mcgp_hmc_blocks_per_sm(int k) {
   return by_slots(kScalars + k, QueryOp{k}, -1);
 }
 
-// counts (k, k) and bvec (k,) float64 with k = t + d + c, yty and n the rows'
-// y^T y and count; the state tensors float32: theta, inv_mass (chains, 5 + k),
-// lp, eps (chains,); z (iters, chains, 5 + k), u_jit and u_acc (iters,
-// chains). One block of 32 * kWarps threads per chain. The modes:
+// The bytes of one fit's entry in mcgp_hmc_run's table.
+extern "C" int mcgp_hmc_args_bytes() { return (int)sizeof(Args); }
+
+// One stage of n_fits fits of the same S = ceil((5 + k) / 32) in one launch,
+// one block of 32 * kWarps threads per chain of every fit. Per fit f:
+// ptrs[kFitPtrs f ...] its device pointers (counts, bvec, theta, lp, eps,
+// inv_mass, z, u_jit, u_acc, theta_out, lp_out, alpha_out, grad_out, eps_out,
+// var_out, lp0_out, trace_theta, trace_lp, trace_eps, trace_alpha; 0 for
+// null), sizes[5 f ...] its n, t, d, c and chains, yty[f], and prec[4 f ...]
+// its four prior precisions: counts (k, k) and bvec (k,) float64 with k = t +
+// d + c, yty and n the rows' y^T y and count; the state tensors float32:
+// theta, inv_mass (chains, 5 + k), lp, eps (chains,); z (iters, chains, 5 +
+// k), u_jit and u_acc (iters, chains). The stage's other arguments are every
+// fit's. The modes:
 //   * iters = 0: logp at theta into lp_out and, when grad_out is not null,
 //     its gradient (chains, 5 + k) into grad_out;
 //   * iters >= 1: the chains' transitions from theta, at lp when it is not
@@ -658,50 +642,15 @@ extern "C" int mcgp_hmc_blocks_per_sm(int k) {
 //     eps; theta_out, lp_out the final state, alpha_out the mean alpha; when
 //     trace_theta is not null the trace, per iteration theta (iters, chains,
 //     5 + k), lp, the step size used and alpha (iters, chains).
-// Returns the first CUDA error of the shared-memory opt-in and the launch.
-extern "C" int mcgp_hmc_run(const double* counts, const double* bvec, double yty, int n, int t,
-                            int d, int c, float prec0, float prec1, float prec2, float prec3,
-                            int adapt, double t0, double gamma, double kappa, float target,
-                            float log10, float var_lo, float var_hi, const float* theta,
-                            const float* lp, const float* eps, const float* inv_mass,
-                            const float* z, const float* u_jit, const float* u_acc,
-                            float* theta_out, float* lp_out,
-                            float* alpha_out, float* grad_out, float* eps_out, float* var_out,
-                            float* lp0_out, float* trace_theta, float* trace_lp,
-                            float* trace_eps, float* trace_alpha, int chains, int iters,
-                            int n_leapfrog, void* stream) {
-  Args a;
-  const cudaError_t err = fill_args(
-      a, counts, bvec, yty, n, t, d, c, prec0, prec1, prec2, prec3, adapt, t0, gamma, kappa,
-      target, log10, var_lo, var_hi, theta, lp, eps, inv_mass, z, u_jit, u_acc, theta_out,
-      lp_out, alpha_out, grad_out, eps_out, var_out, lp0_out, trace_theta, trace_lp, trace_eps,
-      trace_alpha, chains, iters, n_leapfrog);
-  if (err != cudaSuccess) return (int)err;
-  const cudaStream_t st = (cudaStream_t)stream;
-  return (int)by_slots(a.s.dim, LaunchOp{&a, st}, cudaErrorInvalidValue);
-}
-
-// The bytes of one fit's entry in mcgp_hmc_run_batch's table.
-extern "C" int mcgp_hmc_args_bytes() { return (int)sizeof(Args); }
-
-// One stage of n_fits fits of the same S = ceil((5 + k) / 32) in one launch,
-// each fit's chains as mcgp_hmc_run would run them alone. Per fit f:
-// ptrs[kFitPtrs f ...] its device pointers in mcgp_hmc_run's order (counts,
-// bvec, theta, lp, eps, inv_mass, z, u_jit, u_acc, theta_out, lp_out,
-// alpha_out, grad_out, eps_out, var_out, lp0_out, trace_theta, trace_lp,
-// trace_eps, trace_alpha; 0 for null), sizes[5 f ...] its n, t, d, c and
-// chains, yty[f], and prec[4 f ...] its four prior precisions; the stage's
-// other arguments are every fit's, as in mcgp_hmc_run. `table`: device
-// memory of n_fits * mcgp_hmc_args_bytes() bytes, which this fills on the
-// stream and the launch reads, so it must stay allocated until the launch
-// has run. Returns the first refusal of a fit (cudaErrorInvalidValue, also
-// for fits of different S) or CUDA error of the copy, the opt-in and the
-// launch.
-extern "C" int mcgp_hmc_run_batch(int n_fits, const unsigned long long* ptrs, const int* sizes,
-                                  const double* yty, const float* prec, int adapt, double t0,
-                                  double gamma, double kappa, float target, float log10,
-                                  float var_lo, float var_hi, int iters, int n_leapfrog,
-                                  void* table, void* stream) {
+// `table`: device memory of n_fits * mcgp_hmc_args_bytes() bytes, which this
+// fills on the stream and the launch reads, so it must stay allocated until
+// the launch has run. Returns the first refusal of a fit
+// (cudaErrorInvalidValue, also for fits of different S) or CUDA error of the
+// copy, the opt-in and the launch.
+extern "C" int mcgp_hmc_run(int n_fits, const unsigned long long* ptrs, const int* sizes,
+                            const double* yty, const float* prec, int adapt, double t0,
+                            double gamma, double kappa, float target, float log10, float var_lo,
+                            float var_hi, int iters, int n_leapfrog, void* table, void* stream) {
   if (n_fits < 1 || table == nullptr) return (int)cudaErrorInvalidValue;
   std::vector<Args> fits(n_fits);
   long long blocks = 0;
@@ -729,6 +678,6 @@ extern "C" int mcgp_hmc_run_batch(int n_fits, const unsigned long long* ptrs, co
   cudaError_t err = cudaMemcpyAsync(table, fits.data(), sizeof(Args) * n_fits,
                                     cudaMemcpyHostToDevice, st);
   if (err != cudaSuccess) return (int)err;
-  const BatchOp op{static_cast<const Args*>(table), n_fits, (int)blocks, smem, st};
+  const LaunchOp op{static_cast<const Args*>(table), n_fits, (int)blocks, smem, st};
   return (int)by_slots(fits[0].s.dim, op, cudaErrorInvalidValue);
 }

@@ -38,23 +38,20 @@ sampling) is one launch of a hand-written CUDA kernel (`ops/hmc_kernel.py`,
 leapfrog trajectory, logp at the proposal and accept, and a warmup stage's
 dual averaging and Welford variance, one block per chain, every sum in a
 fixed order), the counterpart of the JAX model's compiled warmup and
-sampling loops: three launches a fit. `sample_posteriors` fits several
+sampling loops: three launches a fit. `sample_posteriors` fits one or more
 designs together, each stage one launch per distinct S for all of them
-(`hmc_kernel.hmc_stages`), each posterior bitwise its own fit's: a
-walk-forward season's route (`BayesianQualiModel.defer` and
-`fit_deferred`). On the CPU the kernel's wrapper runs
-the plain version the kernel is held to: the eager stage
-(`hmc_kernel.stage_plain`) with the eager transition (`sample_posterior(...,
-plain=True)` runs it without the wrapper on any device).
-`sample_posterior_graphed` replays one captured CUDA graph of the eager
-transition per iteration instead (`GraphedTransition`, bitwise the eager
-fit): the yardstick the kernel is timed against.
+(`hmc_kernel.hmc_stages`), each posterior bitwise its own fit's: a lone fit
+(`sample_posterior`, `BayesianQualiModel.fit`) is a batch of one, and a
+walk-forward season batches its races' fits (`BayesianQualiModel.defer` and
+`fit_deferred`). On the CPU the kernel's wrapper runs the plain version the
+kernel is held to: the eager stage (`hmc_kernel.stage_plain`) with the eager
+transition (`sample_posterior(..., plain=True)` runs it without the wrapper
+on any device).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import numpy as np
 import pandas as pd
@@ -248,120 +245,8 @@ def make_log_posterior(design: QualiDesign, device: str | torch.device = "cuda")
 # ---------------------------------------------------------------------------
 
 
-@dataclasses.dataclass(frozen=True)
-class TransitionBuffers:
-    """The static tensors of one transition: its inputs theta (chains, dim),
-    lp (chains,), eps (chains,), inv_mass (chains, dim), z (chains, dim),
-    u_jit and u_acc (chains,), and its outputs, written back into theta and
-    lp, with alpha (chains,)."""
-
-    theta: torch.Tensor
-    lp: torch.Tensor
-    eps: torch.Tensor
-    inv_mass: torch.Tensor
-    z: torch.Tensor
-    u_jit: torch.Tensor
-    u_acc: torch.Tensor
-    alpha: torch.Tensor
-
-    @classmethod
-    def zeros(cls, chains: int, dim: int, device) -> "TransitionBuffers":
-        """Buffers holding a finite placeholder state (theta 0, step 0.1,
-        unit mass), so that runs before the first real inputs stay finite."""
-        f32 = dict(dtype=torch.float32, device=device)
-        return cls(
-            theta=torch.zeros(chains, dim, **f32), lp=torch.zeros(chains, **f32),
-            eps=torch.full((chains,), 0.1, **f32), inv_mass=torch.ones(chains, dim, **f32),
-            z=torch.zeros(chains, dim, **f32), u_jit=torch.zeros(chains, **f32),
-            u_acc=torch.zeros(chains, **f32), alpha=torch.zeros(chains, **f32),
-        )
-
-    def load(self, theta, lp, eps, inv_mass, z, u_jit, u_acc) -> None:
-        """Copy a transition's inputs into the buffers (a buffer passed as
-        its own input is left as it is)."""
-        for dst, src in ((self.theta, theta), (self.lp, lp), (self.eps, eps),
-                         (self.inv_mass, inv_mass), (self.z, z), (self.u_jit, u_jit),
-                         (self.u_acc, u_acc)):
-            if dst is not src:
-                dst.copy_(src)
-
-
-def _transition_into(buf: TransitionBuffers, logp_fn, grad_fn, n_leapfrog: int) -> None:
-    """`_hmc_transition` on the inputs in `buf`, its (theta', lp', alpha)
-    copied back into buf.theta, buf.lp and buf.alpha: what the CUDA graph
-    records. Every buffer keeps its storage, so a replay reads and writes
-    the same addresses."""
-    theta, lp, alpha = _hmc_transition(
-        buf.theta, buf.lp, buf.eps, buf.inv_mass, logp_fn, grad_fn, n_leapfrog,
-        buf.z, buf.u_jit, buf.u_acc,
-    )
-    buf.theta.copy_(theta)
-    buf.lp.copy_(lp)
-    buf.alpha.copy_(alpha)
-
-
-# replays of a captured transition in this process (`GraphedTransition`)
-transition_replays = 0
-# eager runs of the captured function before its capture
-_GRAPH_WARMUP_RUNS = 3
-
-
-class GraphedTransition:
-    """One HMC transition of (chains, dim) float32 chains on a CUDA device,
-    captured once as a CUDA graph and replayed per call; a call takes and
-    returns what `_hmc_transition` does, bitwise.
-
-    The graph holds all of `_hmc_transition`: the momentum from z, the step
-    jitter, the leapfrog trajectory with its gradients, logp of the
-    proposal, the kinetic energies, alpha and the accept. It reads the
-    static inputs of `TransitionBuffers` and the design tensors that
-    `logp_fn` and `grad_fn` close over, by address: those stay alive with
-    the graph. A call copies its inputs into the buffers, replays on the
-    current stream and returns the buffers (theta, lp, alpha), which the
-    next call overwrites. Products stay full float32, as in the eager
-    transition: the graph records whatever `torch.backends.cuda.matmul.
-    allow_tf32` (False by default) selects at capture. A capture that fails
-    raises; there is no eager fallback. `close` releases the graph and its
-    memory pool."""
-
-    def __init__(self, logp_fn, grad_fn, n_leapfrog: int, chains: int, dim: int, device):
-        self.buf = TransitionBuffers.zeros(chains, dim, device)
-        self.graph = torch.cuda.CUDAGraph()
-        capture = torch.cuda.graph(self.graph)
-
-        def record():
-            _transition_into(self.buf, logp_fn, grad_fn, n_leapfrog)
-
-        # Warm-up on the capture stream, outside the capture: cuBLAS takes
-        # its handle and this stream's workspace here. The buffers hold only
-        # the placeholder state; every call loads its own inputs.
-        stream, current = capture.capture_stream, torch.cuda.current_stream(device)
-        stream.wait_stream(current)
-        with torch.cuda.stream(stream):
-            for _ in range(_GRAPH_WARMUP_RUNS):
-                record()
-        current.wait_stream(stream)
-        with capture:
-            record()
-
-    def __call__(self, theta, lp, eps, inv_mass, z, u_jit, u_acc):
-        global transition_replays
-        buf = self.buf
-        buf.load(theta, lp, eps, inv_mass, z, u_jit, u_acc)
-        self.graph.replay()
-        transition_replays += 1
-        return buf.theta, buf.lp, buf.alpha
-
-    def close(self) -> None:
-        """Wait for the replays, then free the graph and return its private
-        memory pool to the device."""
-        torch.cuda.synchronize(self.buf.theta.device)
-        self.graph.reset()
-        torch.cuda.empty_cache()
-
-
 def _staged_all(theta0s: list, stages, n_warmup: int, draws: list) -> list[tuple]:
-    """The full schedule of several fits at once, fit i from theta0s[i]
+    """The full schedule of one or more fits at once, fit i from theta0s[i]
     (chains, dim) with draws[i], each stage one `stages(thetas, eps0s,
     inv_masses, stage_draws, adapt) -> [hmc_kernel.Stage]` call for every
     fit: two warmup stages (identity mass, then the first stage's Welford
@@ -379,26 +264,6 @@ def _staged_all(theta0s: list, stages, n_warmup: int, draws: list) -> list[tuple
     second = stages([f.theta for f in first], [f.eps for f in first], inv_masses, stage2, True)
     last = stages([s.theta for s in second], [s.eps for s in second], inv_masses, sampling, False)
     return [(s.trace_theta, s.alpha_mean) for s in last]
-
-
-def _staged(theta0, stage, n_warmup: int, draws):
-    """`_staged_all` of one fit, each stage a `stage(theta, eps0, inv_mass,
-    draws, adapt) -> hmc_kernel.Stage`. Returns (samples (samples, chains,
-    dim), accept rate (chains,))."""
-    def stages(thetas, eps0s, inv_masses, stage_draws, adapt):
-        return [stage(thetas[0], eps0s[0], inv_masses[0], stage_draws[0], adapt)]
-
-    return _staged_all([theta0], stages, n_warmup, [draws])[0]
-
-
-def _schedule(theta0, logp_fn, step, n_warmup: int, draws):
-    """`_staged` with every stage the eager `hmc_kernel.stage_plain`, each
-    transition a `step(theta, lp, eps, inv_mass, z, u_jit, u_acc) -> (theta,
-    lp, alpha)` and each stage's starting logp `logp_fn`."""
-    def stage(theta, eps0, inv_mass, stage_draws, adapt):
-        return hmc_kernel.stage_plain(theta, logp_fn, step, eps0, inv_mass, stage_draws, adapt)
-
-    return _staged(theta0, stage, n_warmup, draws)
 
 
 def kernel_design(design: QualiDesign, device, plain=None) -> hmc_kernel.KernelDesign:
@@ -424,42 +289,24 @@ def require_capacity(design: QualiDesign, device) -> None:
                                     torch.cuda.get_device_name(dev))
 
 
-def _eager_step(logp_fn, grad_fn, n_leapfrog: int):
-    """`_hmc_transition` on `logp_fn` and `grad_fn` as a `_schedule` step."""
-    def step(theta, lp, eps, inv_mass, z, u_jit, u_acc):
-        return _hmc_transition(theta, lp, eps, inv_mass, logp_fn, grad_fn, n_leapfrog,
-                               z, u_jit, u_acc)
+def _plain_stages(kds: list[hmc_kernel.KernelDesign], n_leapfrog: int):
+    """A `_staged_all` stages function that runs each fit's stage in turn
+    as the eager `hmc_kernel.stage_plain`, every transition `_hmc_transition`
+    on the fit's plain log posterior (kds[i].logp_fn, grad_fn) with
+    `n_leapfrog` steps: the plain version the kernel is held to, on any
+    device."""
+    def stages(thetas, eps0s, inv_masses, stage_draws, adapt):
+        out = []
+        for kd, theta, eps0, inv_mass, draws in zip(kds, thetas, eps0s, inv_masses, stage_draws):
+            def step(theta, lp, eps, inv_mass, z, u_jit, u_acc, kd=kd):
+                return _hmc_transition(theta, lp, eps, inv_mass, kd.logp_fn, kd.grad_fn,
+                                       n_leapfrog, z, u_jit, u_acc)
 
-    return step
+            out.append(hmc_kernel.stage_plain(theta, kd.logp_fn, step, eps0, inv_mass, draws,
+                                              adapt))
+        return out
 
-
-def _run_chains(theta0, logp_fn, grad_fn, n_warmup: int, n_leapfrog: int, draws,
-                kernel: hmc_kernel.KernelDesign | None = None):
-    """The schedule with `n_leapfrog` steps per transition. With `kernel`
-    (the design as the HMC kernel reads it, on theta0's device) each stage is
-    `hmc_kernel.hmc_stage`: one launch of the kernel on a CUDA device, its
-    plain version on the CPU. Without it each transition is `_hmc_transition`
-    run eagerly."""
-    if kernel is None:
-        step = _eager_step(logp_fn, grad_fn, n_leapfrog)
-        return _schedule(theta0, logp_fn, step, n_warmup, draws)
-
-    def stage(theta, eps0, inv_mass, stage_draws, adapt):
-        return hmc_kernel.hmc_stage(kernel, theta, eps0, inv_mass, *stage_draws, n_leapfrog, adapt)
-
-    return _staged(theta0, stage, n_warmup, draws)
-
-
-def _run_graphed(theta0, logp_fn, grad_fn, n_warmup: int, n_leapfrog: int, draws):
-    """`_run_chains` run eagerly, but on a CUDA device every transition a
-    replay of one `GraphedTransition`, released before this returns."""
-    if not theta0.is_cuda:
-        return _run_chains(theta0, logp_fn, grad_fn, n_warmup, n_leapfrog, draws)
-    graphed = GraphedTransition(logp_fn, grad_fn, n_leapfrog, *theta0.shape, theta0.device)
-    try:
-        return _schedule(theta0, logp_fn, graphed, n_warmup, draws)
-    finally:
-        graphed.close()
+    return stages
 
 
 def chain_draws(seed: int, num_chains: int, dim: int, n_iters: int):
@@ -506,35 +353,15 @@ def sample_posterior(
     plain: bool = False,
 ) -> QualiPosterior:
     """Fit the hierarchical model on `device` (a CUDA device raises where
-    there is none). The same seed on the same device gives bitwise the same
-    `raw`. Every stage goes through the HMC kernel's wrapper
-    (`hmc_kernel.hmc_stage`): on a CUDA device one launch of the kernel each,
-    three a fit (counted in `hmc_stage.launches`; a refusal or a failed
-    launch raises `hmc_kernel.HMCKernelError`), on the CPU its plain version.
-    `plain` runs the transitions eagerly without the wrapper on any device,
-    the plain version the kernel is held to."""
-    def runner(logp_fn, grad_fn, dev):
-        kernel = None if plain else kernel_design(design, dev, (logp_fn, grad_fn))
-        return functools.partial(_run_chains, kernel=kernel)
-
-    return _fit(design, num_chains, num_warmup, num_samples, num_leapfrog, seed, device, runner)
-
-
-def sample_posterior_graphed(
-    design: QualiDesign,
-    num_chains: int = 4,
-    num_warmup: int = 1000,
-    num_samples: int = 1000,
-    num_leapfrog: int = 48,
-    seed: int = 42,
-    device: str | torch.device = "cuda",
-) -> QualiPosterior:
-    """`sample_posterior` with every transition on a CUDA device a replay of
-    one captured CUDA graph of the eager transition (`GraphedTransition`,
-    counted in `transition_replays`), bitwise the `plain` fit: the yardstick
-    the kernel is timed against. The CPU runs the transitions eagerly."""
-    return _fit(design, num_chains, num_warmup, num_samples, num_leapfrog, seed, device,
-                lambda *_: _run_graphed)
+    there is none): `sample_posteriors` of the one design. The same seed on
+    the same device gives bitwise the same `raw`. On a CUDA device each of
+    the three stages is one launch of the HMC kernel (counted in
+    `hmc_kernel.hmc_stage.launches`; a refusal or a failed launch raises
+    `hmc_kernel.HMCKernelError`), on the CPU its plain version. `plain` runs
+    the transitions eagerly without the kernel's wrapper on any device, the
+    plain version the kernel is held to."""
+    return sample_posteriors([design], num_chains, num_warmup, num_samples, num_leapfrog, seed,
+                             device, plain=plain)[0]
 
 
 def sample_posteriors(
@@ -545,38 +372,42 @@ def sample_posteriors(
     num_leapfrog: int = 48,
     seed: int = 42,
     device: str | torch.device = "cuda",
+    *,
+    plain: bool = False,
 ) -> list[QualiPosterior]:
-    """`sample_posterior` of every design at one budget and seed, all fits
-    together: each stage of the schedule is one `hmc_kernel.hmc_stages`
-    call for every fit, on a CUDA device one launch of the kernel's batched
-    entry per distinct S of the designs (`hmc_kernel.slots`), every chain of
-    every fit a block of it; on the CPU each fit's plain stages in turn.
-    Each posterior is bitwise the one `sample_posterior` gives its design
-    alone. A single design is `sample_posterior` itself. A refusal of any
-    fit raises `hmc_kernel.HMCKernelError` before anything launches.
+    """Fit every design at one budget and seed, all fits together: each
+    stage of the schedule (`_staged_all`) is one `hmc_kernel.hmc_stages`
+    call for every fit, on a CUDA device one launch of the kernel per
+    distinct S of the designs (`hmc_kernel.slots`), every chain of every fit
+    a block of it; on the CPU each fit's plain stages in turn. `plain` runs
+    each fit's stages in turn without the kernel's wrapper on any device
+    (`_plain_stages`). Each posterior is bitwise the one its design gives
+    alone. A refusal of any fit raises `hmc_kernel.HMCKernelError` before
+    anything launches. The sampling stage takes the draws that remain after
+    warmup, `num_samples` of them.
 
     Several designs add their number to the counter `fit.batched`; spans
-    (inside the caller's): `fit.design` per design, one `fit.chains` (every
-    fit's draws, their upload, the stage launches and the readback), then
-    `fit.posterior` per design."""
-    if len(designs) == 1:
-        return [sample_posterior(designs[0], num_chains, num_warmup, num_samples, num_leapfrog,
-                                 seed, device)]
-    count("fit.batched", len(designs))
+    (inside the caller's): `fit.design` per design (the log posterior and
+    the kernel's statistics), one `fit.chains` (every fit's draws, their
+    upload, the stage launches and the readback), then `fit.posterior` per
+    design (the constrained draws)."""
+    if len(designs) > 1:
+        count("fit.batched", len(designs))
     dev = torch.device(device)
     kds = []
     for design in designs:
         with span("fit.design"):
-            plain = make_log_posterior(design, dev)[:2]
+            fns = make_log_posterior(design, dev)[:2]
             with torch.inference_mode():
-                kds.append(kernel_design(design, dev, plain))
+                kds.append(kernel_design(design, dev, fns))
 
-    def stages(thetas, eps0s, inv_masses, stage_draws, adapt):
+    def kernel_stages(thetas, eps0s, inv_masses, stage_draws, adapt):
         return hmc_kernel.hmc_stages(kds, thetas, eps0s, inv_masses, *zip(*stage_draws),
                                      int(num_leapfrog), adapt)
 
+    stages = _plain_stages(kds, int(num_leapfrog)) if plain else kernel_stages
     with span("fit.chains"):
-        with torch.inference_mode():
+        with torch.inference_mode():  # no autograd bookkeeping on ~10^5 small ops
             starts = [_chain_inputs(d, num_chains, num_warmup, num_samples, seed, dev)
                       for d in designs]
             runs = _staged_all([theta0 for theta0, _ in starts], stages, int(num_warmup),
@@ -620,32 +451,6 @@ def _posterior(design: QualiDesign, sizes, raw: np.ndarray, accept: np.ndarray) 
         accept_rate=accept,
         raw=raw,
     )
-
-
-def _fit(design: QualiDesign, num_chains: int, num_warmup: int, num_samples: int,
-         num_leapfrog: int, seed: int, device, runner) -> QualiPosterior:
-    """`sample_posterior` with its schedule run by `runner(logp_fn, grad_fn,
-    device)`, a `run(theta0, logp_fn, grad_fn, n_warmup, n_leapfrog, draws)
-    -> (samples, accept)` (`_run_chains`, `_run_graphed`); the sampling
-    stage takes the draws that remain after warmup, `num_samples` of them.
-    Spans: `fit.design` (the log posterior and what the runner reads of the
-    design, the kernel's statistics), `fit.chains` (the draws, their upload,
-    the schedule's launches and the readback), `fit.posterior` (the
-    constrained draws)."""
-    dev = torch.device(device)
-    with span("fit.design"):
-        logp_fn, grad_fn, sizes = make_log_posterior(design, dev)
-        with torch.inference_mode():
-            run = runner(logp_fn, grad_fn, dev)
-    with span("fit.chains"):
-        with torch.inference_mode():  # no autograd bookkeeping on ~10^5 small ops
-            theta0, draws = _chain_inputs(design, num_chains, num_warmup, num_samples, seed, dev)
-            samples, accept = run(theta0, logp_fn, grad_fn, int(num_warmup), int(num_leapfrog),
-                                  draws)
-            raw = samples.transpose(0, 1).cpu().numpy()  # (chains, samples, dim)
-            accept = accept.cpu().numpy()
-    with span("fit.posterior"):
-        return _posterior(design, sizes, raw, accept)
 
 
 def split_rhat(chains_samples: np.ndarray) -> np.ndarray:

@@ -4,23 +4,25 @@ the counterpart of the JAX fit's compiled warmup and sampling loops
 `_hmc_transition`, `_warmup_scan`, `_sample_chain`, which XLA computes; no
 Pallas kernel).
 
-`hmc_stage` runs every transition of one stage of a fit for every chain: a
-warmup stage (dual-averaged step sizes at a fixed mass, a Welford variance
-over its second half) or the sampling stage (a fixed step size and mass). It
-returns a `Stage`: the chains' final state, the stage's adapted step size and
-variance, and its per-iteration trace (theta after each transition, lp, the
-step size used and alpha). `hmc_transition` is one transition from given
+`hmc_stages` runs every transition of one stage of one or more fits for
+every chain: a warmup stage (dual-averaged step sizes at a fixed mass, a
+Welford variance over its second half) or the sampling stage (a fixed step
+size and mass). It returns a `Stage` per fit: the chains' final state, the
+stage's adapted step size and variance, and its per-iteration trace (theta
+after each transition, lp, the step size used and alpha); `hmc_stage` is
+`hmc_stages` of one fit. `hmc_transition` is one transition from given
 inputs (theta, lp, eps, inv_mass, z, u_jit, u_acc) -> (theta', lp', alpha);
 `hmc_logp` is logp (and the gradient) at theta. For CPU tensors each runs its
 plain version: `stage_plain` with `hmc_transition_plain` steps (the eager
 schedule of `models/bayesian.py`'s fit) and `make_log_posterior`'s functions.
-For CUDA tensors each launches the kernel, one block per chain, or raises.
-Each counts its launches (`hmc_stage.launches`, `hmc_transition.launches`,
-`hmc_logp.launches`). `hmc_stages` runs one stage of several fits at once:
-on a card one launch of the kernel's batched entry per distinct S (the
-parameters a lane holds, `slots`), a block per chain of every fit, each
-block on its own fit's design and inputs, so each fit's `Stage` is bitwise
-its own launch's; one fit's chains fill only 4 of an H100's 132 SMs.
+For CUDA tensors each launches the kernel through its one C entry, or
+raises: every launch takes a table of fits (`launch_tables`), one row per fit
+of one S (the parameters a lane holds, `slots`), a block per chain of every
+fit, each block on its own fit's design and inputs, so each fit's `Stage` is
+bitwise what it gives alone; one fit's chains fill only 4 of an H100's 132
+SMs. A lone fit, the one-transition entry and the logp entry are tables of
+one. Each counts its launches (`hmc_stage.launches` for the stages of every
+fit, `hmc_transition.launches`, `hmc_logp.launches`).
 
 The model is linear-Gaussian in its effects: every training row has exactly
 one team, one driver and one circuit column, so with A the (N, K) one-hot
@@ -440,11 +442,8 @@ def load_library(path) -> ctypes.CDLL:
     """A built HMC-kernel library with its C entry points' signatures set."""
     lib = ctypes.CDLL(str(path))
     p, i, f, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
-    lib.mcgp_hmc_run.argtypes = [p, p, d, i, i, i, i, f, f, f, f, i, d, d, d, f, f, f, f,
-                                 *[p] * 7, *[p] * 11, i, i, i, p]
+    lib.mcgp_hmc_run.argtypes = [i, p, p, p, p, i, d, d, d, f, f, f, f, i, i, p, p]
     lib.mcgp_hmc_run.restype = i
-    lib.mcgp_hmc_run_batch.argtypes = [i, p, p, p, p, i, d, d, d, f, f, f, f, i, i, p, p]
-    lib.mcgp_hmc_run_batch.restype = i
     lib.mcgp_hmc_args_bytes.argtypes = []
     lib.mcgp_hmc_args_bytes.restype = i
     lib.mcgp_hmc_max_shared_bytes.argtypes = []
@@ -563,119 +562,11 @@ def require_capacity(n_cols: int, capacity: int, where: str) -> None:
 # a launch's adaptation constants after the dual averaging's t0, gamma and
 # kappa: the target acceptance, log(10) and the variance clamp, float32
 _SCALARS = tuple(float(np.float32(x)) for x in (TARGET_ACCEPT, math.log(10.0), VAR_MIN, VAR_MAX))
-# the pointers of one fit in a launch, in the C entries' order
+# the pointers of one fit in a launch, in the C entry's order after counts,
+# b and theta
 _POINTERS = ("lp", "eps", "inv_mass", "z", "u_jit", "u_acc", "theta_out", "lp_out", "alpha_out",
              "grad_out", "eps_out", "var_out", "lp0_out", "trace_theta", "trace_lp", "trace_eps",
              "trace_alpha")
-
-
-def _ptr(tensors: dict, name: str) -> int | None:
-    x = tensors.get(name)
-    return None if x is None else x.data_ptr()
-
-
-def _launch(kd: KernelDesign, theta, iters: int, n_leapfrog: int, adapt: bool = False,
-            **tensors) -> None:
-    """One launch of the kernel on theta's device and the current stream,
-    with `adapt` a warmup stage; `tensors` names the C entry's pointers
-    (absent ones are null)."""
-    if _lib is None:
-        build()
-    t, d, c = kd.sizes
-    card = torch.cuda.get_device_name(theta.device)
-    require_capacity(kd.n_cols, max_cols(theta.device), card)
-    with torch.cuda.device(theta.device):
-        err = _lib.mcgp_hmc_run(
-            kd.counts.data_ptr(), kd.b.data_ptr(), kd.yty, kd.n_rows, t, d, c, *kd.prior_prec,
-            int(adapt), DA_T0, DA_GAMMA, DA_KAPPA, *_SCALARS, theta.data_ptr(),
-            *(_ptr(tensors, k) for k in _POINTERS), theta.shape[0], iters, n_leapfrog,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        raise HMCKernelError(f"HMC kernel launch failed: CUDA error {err}")
-
-
-def _launch_batch(kds: list[KernelDesign], thetas: list, iters: int, n_leapfrog: int,
-                  adapt: bool, tensors: list[dict]) -> None:
-    """One launch of the kernel's batched entry for the fits `kds` (of one
-    S, checked against the column capacity), fit i from thetas[i] with the
-    pointers tensors[i] names, on the current stream of theta's device."""
-    device = thetas[0].device
-    n = len(kds)
-    ptrs = np.array([[kd.counts.data_ptr(), kd.b.data_ptr(), theta.data_ptr(),
-                      *(_ptr(x, k) or 0 for k in _POINTERS)]
-                     for kd, theta, x in zip(kds, thetas, tensors)], np.uint64)
-    sizes = np.array([[kd.n_rows, *kd.sizes, theta.shape[0]] for kd, theta in zip(kds, thetas)],
-                     np.int32)
-    yty = np.array([kd.yty for kd in kds], np.float64)
-    prec = np.array([kd.prior_prec for kd in kds], np.float32)
-    with torch.cuda.device(device):
-        # the launch reads its fits' table from here; freed after the call, it
-        # is reused only by work later on the same stream
-        table = torch.empty(n * _lib.mcgp_hmc_args_bytes(), dtype=torch.uint8, device=device)
-        err = _lib.mcgp_hmc_run_batch(
-            n, ptrs.ctypes.data, sizes.ctypes.data, yty.ctypes.data, prec.ctypes.data,
-            int(adapt), DA_T0, DA_GAMMA, DA_KAPPA, *_SCALARS, iters, n_leapfrog,
-            table.data_ptr(), torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        raise HMCKernelError(f"batched HMC kernel launch of {n} fits failed: CUDA error {err}")
-
-
-def _check_stage(kd: KernelDesign, theta, eps0, inv_mass, z, u_jit, u_acc,
-                 n_leapfrog: int) -> None:
-    """`hmc_stage`'s refusals of its inputs."""
-    if z.dim() != 3 or z.shape[0] < 1:
-        raise HMCKernelError(f"z must be (iters >= 1, chains, dim), got {tuple(z.shape)}")
-    _check(kd, theta, dict(eps=eps0, inv_mass=inv_mass, z=z, u_jit=u_jit, u_acc=u_acc),
-           z.shape[0])
-    if n_leapfrog < 1:
-        raise HMCKernelError(f"n_leapfrog must be >= 1, got {n_leapfrog}")
-
-
-def _stage_outputs(theta, eps0, z, u_jit, adapt: bool) -> dict:
-    """New tensors for a stage launch's outputs, by the C entry's names."""
-    out = dict(theta_out=torch.empty_like(theta), lp_out=torch.empty_like(eps0),
-               alpha_out=torch.empty_like(eps0), lp0_out=torch.empty_like(eps0),
-               trace_theta=torch.empty_like(z), trace_lp=torch.empty_like(u_jit),
-               trace_eps=torch.empty_like(u_jit), trace_alpha=torch.empty_like(u_jit))
-    if adapt:
-        out.update(eps_out=torch.empty_like(eps0), var_out=torch.empty_like(theta))
-    return out
-
-
-def _stage_of(out: dict, eps0, adapt: bool) -> Stage:
-    return Stage(out["theta_out"], out["lp_out"], out["eps_out"] if adapt else eps0,
-                 out.get("var_out"), out["alpha_out"], out["lp0_out"], out["trace_theta"],
-                 out["trace_lp"], out["trace_eps"], out["trace_alpha"])
-
-
-def hmc_stage(kd: KernelDesign, theta, eps0, inv_mass, z, u_jit, u_acc, n_leapfrog: int,
-              adapt: bool) -> Stage:
-    """One stage of every chain: theta, inv_mass (chains, dim) and eps0
-    (chains,) as the stage starts, z (iters, chains, dim), u_jit and u_acc
-    (iters, chains), float32 and contiguous, on kd's device. With `adapt` a
-    warmup stage, else sampling at eps0. Returns a `Stage` of new tensors.
-
-    CPU tensors run `stage_plain` with `hmc_transition_plain` steps on kd's
-    plain log posterior. CUDA tensors run the whole stage as one launch of
-    the kernel on the current stream (one block per chain), writing the
-    trace as it goes; a launch
-    error, or a design over the kernel's column capacity, raises
-    `HMCKernelError`, as do inputs of another dtype, shape, layout or
-    device."""
-    _check_stage(kd, theta, eps0, inv_mass, z, u_jit, u_acc, n_leapfrog)
-    if theta.device.type == "cpu":
-        step = functools.partial(_plain_step, kd, n_leapfrog)
-        return stage_plain(theta, kd.logp_fn, step, eps0, inv_mass, (z, u_jit, u_acc), adapt)
-    out = _stage_outputs(theta, eps0, z, u_jit, adapt)
-    _launch(kd, theta, z.shape[0], int(n_leapfrog), adapt, eps=eps0, inv_mass=inv_mass, z=z,
-            u_jit=u_jit, u_acc=u_acc, **out)
-    hmc_stage.launches += 1
-    return _stage_of(out, eps0, adapt)
-
-
-hmc_stage.launches = 0
 
 
 def slots(kd: KernelDesign) -> int:
@@ -684,27 +575,131 @@ def slots(kd: KernelDesign) -> int:
     return -(-kd.dim // 32)
 
 
+def launch_tables(kds: list[KernelDesign], thetas: list, tensors: list[dict]) -> list[tuple]:
+    """The C entry's tables for the fits `kds`, fit i from thetas[i] with
+    the pointers tensors[i] names: one table per distinct S (`slots`), in
+    order of first appearance, each (members, the indices of its fits in
+    order; ptrs (fits, 20) uint64: counts, b, theta, then `_POINTERS`, an
+    absent or None pointer 0; sizes (fits, 5) int32: n, T, D, C and chains;
+    y^T y (fits,) float64; the prior precisions (fits, 4) float32)."""
+    groups: dict[int, list[int]] = {}
+    for i, kd in enumerate(kds):
+        groups.setdefault(slots(kd), []).append(i)
+    tables = []
+    for members in groups.values():
+        fits = [(kds[i], thetas[i], tensors[i]) for i in members]
+        ptrs = np.array([[kd.counts.data_ptr(), kd.b.data_ptr(), theta.data_ptr(),
+                          *(x[k].data_ptr() if x.get(k) is not None else 0 for k in _POINTERS)]
+                         for kd, theta, x in fits], np.uint64)
+        sizes = np.array([[kd.n_rows, *kd.sizes, theta.shape[0]] for kd, theta, _ in fits],
+                         np.int32)
+        yty = np.array([kd.yty for kd, _, _ in fits], np.float64)
+        prec = np.array([kd.prior_prec for kd, _, _ in fits], np.float32)
+        tables.append((members, ptrs, sizes, yty, prec))
+    return tables
+
+
+def _launch(kds: list[KernelDesign], thetas: list, tensors: list[dict], iters: int,
+            n_leapfrog: int, adapt: bool = False) -> int:
+    """Launch the kernel on the current stream of theta's device for the
+    fits `kds`, fit i from thetas[i] with the pointers tensors[i] names:
+    every design checked against the column capacity before anything
+    launches, then one launch per table of `launch_tables`, a block per
+    chain of every fit of its S. Returns the number of launches."""
+    if _lib is None:
+        build()
+    device = thetas[0].device
+    capacity, card = max_cols(device), torch.cuda.get_device_name(device)
+    for kd in kds:
+        require_capacity(kd.n_cols, capacity, card)
+    tables = launch_tables(kds, thetas, tensors)
+    for members, ptrs, sizes, yty, prec in tables:
+        n = len(members)
+        with torch.cuda.device(device):
+            # the launch reads its fits' table from here; freed after the call,
+            # it is reused only by work later on the same stream
+            table = torch.empty(n * _lib.mcgp_hmc_args_bytes(), dtype=torch.uint8, device=device)
+            err = _lib.mcgp_hmc_run(
+                n, ptrs.ctypes.data, sizes.ctypes.data, yty.ctypes.data, prec.ctypes.data,
+                int(adapt), DA_T0, DA_GAMMA, DA_KAPPA, *_SCALARS, iters, n_leapfrog,
+                table.data_ptr(), torch.cuda.current_stream().cuda_stream,
+            )
+        if err != 0:
+            raise HMCKernelError(f"HMC kernel launch of {n} fits failed: CUDA error {err}")
+    return len(tables)
+
+
+def _check_stage(kd: KernelDesign, theta, eps0, inv_mass, z, u_jit, u_acc,
+                 n_leapfrog: int) -> None:
+    """A stage's refusals of one fit's inputs."""
+    if z.dim() != 3 or z.shape[0] < 1:
+        raise HMCKernelError(f"z must be (iters >= 1, chains, dim), got {tuple(z.shape)}")
+    _check(kd, theta, dict(eps=eps0, inv_mass=inv_mass, z=z, u_jit=u_jit, u_acc=u_acc),
+           z.shape[0])
+    if n_leapfrog < 1:
+        raise HMCKernelError(f"n_leapfrog must be >= 1, got {n_leapfrog}")
+
+
+def _stage_tensors(theta, eps0, inv_mass, z, u_jit, u_acc, adapt: bool) -> dict:
+    """A stage launch's inputs and new tensors for its outputs, by the C
+    entry's names."""
+    out = dict(eps=eps0, inv_mass=inv_mass, z=z, u_jit=u_jit, u_acc=u_acc,
+               theta_out=torch.empty_like(theta), lp_out=torch.empty_like(eps0),
+               alpha_out=torch.empty_like(eps0), lp0_out=torch.empty_like(eps0),
+               trace_theta=torch.empty_like(z), trace_lp=torch.empty_like(u_jit),
+               trace_eps=torch.empty_like(u_jit), trace_alpha=torch.empty_like(u_jit))
+    if adapt:
+        out.update(eps_out=torch.empty_like(eps0), var_out=torch.empty_like(theta))
+    return out
+
+
+def _transition_tensors(theta, lp, eps, inv_mass, z, u_jit, u_acc) -> dict:
+    """The one-transition entry's inputs (iters = 1, from the given lp) and
+    new tensors for (theta', lp', alpha), by the C entry's names."""
+    return dict(lp=lp, eps=eps, inv_mass=inv_mass, z=z, u_jit=u_jit, u_acc=u_acc,
+                theta_out=torch.empty_like(theta), lp_out=torch.empty_like(lp),
+                alpha_out=torch.empty_like(lp))
+
+
+def _logp_tensors(theta, grad: bool) -> dict:
+    """The logp entry's new tensors (iters = 0): lp (chains,) and, with
+    `grad`, the gradient (chains, dim), by the C entry's names."""
+    lp = torch.empty(theta.shape[0], dtype=torch.float32, device=theta.device)
+    return dict(lp_out=lp, grad_out=torch.empty_like(theta) if grad else None)
+
+
+def _stage_of(out: dict, eps0, adapt: bool) -> Stage:
+    return Stage(out["theta_out"], out["lp_out"], out["eps_out"] if adapt else eps0,
+                 out.get("var_out"), out["alpha_out"], out["lp0_out"], out["trace_theta"],
+                 out["trace_lp"], out["trace_eps"], out["trace_alpha"])
+
+
 def hmc_stages(kds: list[KernelDesign], thetas: list, eps0s: list, inv_masses: list, zs: list,
                u_jits: list, u_accs: list, n_leapfrog: int, adapt: bool) -> list[Stage]:
-    """One stage of several fits at once: fit i's design and inputs are the
-    i-th entries of the lists, each as `hmc_stage` takes them, and every fit
-    runs the same stage (`adapt`, the iterations of its draws, `n_leapfrog`).
-    Returns each fit's `Stage`, bitwise what `hmc_stage` gives it alone.
+    """One stage of every chain of one or more fits: fit i's design and
+    inputs are the i-th entries of the lists: theta, inv_mass (chains, dim)
+    and eps0 (chains,) as the stage starts, z (iters, chains, dim), u_jit and
+    u_acc (iters, chains), float32 and contiguous, on its design's device.
+    Every fit runs the same stage: with `adapt` a warmup stage, else
+    sampling at eps0, over the same iterations with `n_leapfrog` steps.
+    Returns each fit's `Stage` of new tensors, bitwise what the fit gives
+    alone.
 
-    CPU tensors run each fit's `hmc_stage` in turn, as does a single fit.
-    On a CUDA device every fit's inputs and its design's column capacity are
-    checked before anything launches (`HMCKernelError`, as in `hmc_stage`);
-    then the fits of one S (`slots`) run as one launch of the kernel's
-    batched entry on the current stream, a block per chain of every fit,
-    and a fit alone in its S as its own launch. Each launch counts in
-    `hmc_stage.launches`, so a stage takes one launch per distinct S."""
+    CPU tensors run each fit's `stage_plain` in turn, with
+    `hmc_transition_plain` steps on its design's plain log posterior. On a
+    CUDA device every fit's inputs and its design's column capacity are
+    checked before anything launches; then the fits of one S (`slots`) run
+    as one launch of the kernel on the current stream, a block per chain of
+    every fit, writing the traces as it goes. Each launch counts in
+    `hmc_stage.launches`, so a stage takes one launch per distinct S. A
+    launch error, a design over the kernel's column capacity, inputs of
+    another dtype, shape, layout or device, or fits that differ in device or
+    iterations raise `HMCKernelError`."""
     fits = list(zip(kds, thetas, eps0s, inv_masses, zs, u_jits, u_accs))
     if not fits or any(len(x) != len(fits) for x in (kds, thetas, eps0s, inv_masses, zs,
                                                       u_jits, u_accs)):
         raise HMCKernelError("hmc_stages takes one design and one of each input per fit")
     device = thetas[0].device
-    if len(fits) == 1 or device.type == "cpu":
-        return [hmc_stage(*fit, n_leapfrog, adapt) for fit in fits]
     for fit in fits:
         _check_stage(*fit, n_leapfrog)
         if fit[1].device != device:
@@ -713,29 +708,24 @@ def hmc_stages(kds: list[KernelDesign], thetas: list, eps0s: list, inv_masses: l
         if fit[4].shape[0] != zs[0].shape[0]:
             raise HMCKernelError(f"the fits of one stage share its iterations: {fit[4].shape[0]} "
                                  f"and {zs[0].shape[0]}")
-    if _lib is None:
-        build()
-    capacity, card = max_cols(device), torch.cuda.get_device_name(device)
-    for kd in kds:
-        require_capacity(kd.n_cols, capacity, card)
-    groups: dict[int, list[int]] = {}
-    for i, kd in enumerate(kds):
-        groups.setdefault(slots(kd), []).append(i)
-    stages: list[Stage | None] = [None] * len(fits)
-    for members in groups.values():
-        if len(members) == 1:
-            (i,) = members
-            stages[i] = hmc_stage(*fits[i], n_leapfrog, adapt)
-            continue
-        outs = [_stage_outputs(thetas[i], eps0s[i], zs[i], u_jits[i], adapt) for i in members]
-        ins = [dict(eps=eps0s[i], inv_mass=inv_masses[i], z=zs[i], u_jit=u_jits[i],
-                    u_acc=u_accs[i], **out) for i, out in zip(members, outs)]
-        _launch_batch([kds[i] for i in members], [thetas[i] for i in members], zs[0].shape[0],
-                      int(n_leapfrog), adapt, ins)
-        hmc_stage.launches += 1
-        for i, out in zip(members, outs):
-            stages[i] = _stage_of(out, eps0s[i], adapt)
-    return stages
+    if device.type == "cpu":
+        return [stage_plain(theta, kd.logp_fn, functools.partial(_plain_step, kd, n_leapfrog),
+                            eps0, inv_mass, (z, u_jit, u_acc), adapt)
+                for kd, theta, eps0, inv_mass, z, u_jit, u_acc in fits]
+    tensors = [_stage_tensors(*fit[1:], adapt) for fit in fits]
+    hmc_stage.launches += _launch(kds, thetas, tensors, zs[0].shape[0], int(n_leapfrog), adapt)
+    return [_stage_of(out, eps0, adapt) for out, eps0 in zip(tensors, eps0s)]
+
+
+def hmc_stage(kd: KernelDesign, theta, eps0, inv_mass, z, u_jit, u_acc, n_leapfrog: int,
+              adapt: bool) -> Stage:
+    """`hmc_stages` of one fit: its `Stage`. `hmc_stage.launches` counts the
+    kernel's stage launches of every fit."""
+    return hmc_stages([kd], [theta], [eps0], [inv_mass], [z], [u_jit], [u_acc], n_leapfrog,
+                      adapt)[0]
+
+
+hmc_stage.launches = 0
 
 
 def _plain_step(kd: KernelDesign, n_leapfrog: int, theta, lp, eps, inv_mass, z, u_jit, u_acc):
@@ -749,20 +739,18 @@ def hmc_transition(kd: KernelDesign, theta, lp, eps, inv_mass, z, u_jit, u_acc, 
     device. Returns (theta', lp', alpha), new tensors.
 
     CPU tensors run `hmc_transition_plain` with kd's plain log posterior.
-    CUDA tensors launch the kernel's stage code for one iteration from the
-    given lp at the given eps (the same device code as a stage's
-    transition, so from a stage trace's state it gives the trace's next
-    state bitwise); refusals raise `HMCKernelError` as in `hmc_stage`."""
+    CUDA tensors launch the kernel for one iteration from the given lp at
+    the given eps (the same device code as a stage's transition, so from a
+    stage trace's state it gives the trace's next state bitwise); refusals
+    raise `HMCKernelError` as in `hmc_stages`."""
     _check(kd, theta, dict(lp=lp, eps=eps, inv_mass=inv_mass, z=z, u_jit=u_jit, u_acc=u_acc))
     if n_leapfrog < 1:
         raise HMCKernelError(f"n_leapfrog must be >= 1, got {n_leapfrog}")
     if theta.device.type == "cpu":
         return _plain_step(kd, n_leapfrog, theta, lp, eps, inv_mass, z, u_jit, u_acc)
-    theta_out, lp_out, alpha = torch.empty_like(theta), torch.empty_like(lp), torch.empty_like(lp)
-    _launch(kd, theta, 1, int(n_leapfrog), lp=lp, eps=eps, inv_mass=inv_mass, z=z,
-            u_jit=u_jit, u_acc=u_acc, theta_out=theta_out, lp_out=lp_out, alpha_out=alpha)
-    hmc_transition.launches += 1
-    return theta_out, lp_out, alpha
+    out = _transition_tensors(theta, lp, eps, inv_mass, z, u_jit, u_acc)
+    hmc_transition.launches += _launch([kd], [theta], [out], 1, int(n_leapfrog))
+    return out["theta_out"], out["lp_out"], out["alpha_out"]
 
 
 hmc_transition.launches = 0
@@ -778,11 +766,9 @@ def hmc_logp(kd: KernelDesign, theta: torch.Tensor, grad: bool = False):
     if theta.device.type == "cpu":
         lp = kd.logp_fn(theta)
         return (lp, kd.grad_fn(theta)) if grad else lp
-    lp = torch.empty(theta.shape[0], dtype=torch.float32, device=theta.device)
-    g = torch.empty_like(theta) if grad else None
-    _launch(kd, theta, 0, 0, lp_out=lp, grad_out=g)
-    hmc_logp.launches += 1
-    return (lp, g) if grad else lp
+    out = _logp_tensors(theta, grad)
+    hmc_logp.launches += _launch([kd], [theta], [out], 0, 0)
+    return (out["lp_out"], out["grad_out"]) if grad else out["lp_out"]
 
 
 hmc_logp.launches = 0

@@ -10,14 +10,13 @@ statistical tolerances the CPU tests hold the port to against the JAX
 package (tests/test_torch_bayesian.py), the kernel takes the archive before
 the last race of the synthetic 2024 season and a design of more rows than
 the row kernel held, refuses a design over its column capacity, and the
-Bayesian leg of the walk-forward pole-Brier gate runs on the card. The
-graphed fit (`sample_posterior_graphed`, every transition a replay of one
-captured CUDA graph), the yardstick the kernel is timed against, stays
-bitwise the eager fit of the same seed and releases its graph. Several fits
-run together (`sample_posteriors`: one launch per stage and S for all of
-them) bitwise as each fit's own launches, refuse before they launch, and
-the Bayesian walk-forward, which fits its races together, gives the plans
-of the same season race by race. Every test here needs a CUDA device and skips without one.
+Bayesian leg of the walk-forward pole-Brier gate runs on the card. Several
+fits run together (`sample_posteriors`: one launch per stage and S for all
+of them, a lone fit a batch of one) bitwise as each fit's own launches, a
+fit alone in its S among them too, refuse before they launch, and the
+Bayesian walk-forward, which fits its races together, gives the plans of
+the same season race by race. Every test here needs a CUDA device and skips
+without one.
 
 This file imports torch and the port only, so it also runs on a GPU machine
 without jax:
@@ -65,60 +64,16 @@ def pole_tv(a, b, drivers, teams, circuit, seed=3) -> float:
 
 
 @pytest.mark.gpu
-def test_graphed_fit_equals_eager_fit_bitwise(cuda_device):
-    """200 + 100 transitions: 300 replays of the graph, and `raw` and
-    `accept_rate` bitwise those of the same seed's eager fit on the card."""
-    design = B.build_quali_design(world()[0])
-    B.transition_replays = 0
-    graphed = B.sample_posterior_graphed(design, num_warmup=200, num_samples=100, seed=7,
-                                         device=cuda_device)
-    assert B.transition_replays == 300
-    eager = B.sample_posterior(design, num_warmup=200, num_samples=100, seed=7, device=cuda_device,
-                               plain=True)
-    assert B.transition_replays == 300  # the plain version replays nothing
-    assert np.array_equal(graphed.raw, eager.raw)
-    assert np.array_equal(graphed.accept_rate, eager.accept_rate)
-    assert np.isfinite(graphed.raw).all()
-
-
-@pytest.mark.gpu
-def test_graphed_fits_release_their_graph(cuda_device):
-    """Three graphed fits in a row: the memory reserved, at the peak and
-    after each fit, does not grow after the first, and once the cache is
-    emptied nothing of the fits stays reserved (a fit before them makes
-    what lives for the process, such as cuBLAS's workspaces)."""
-    design = B.build_quali_design(world()[0])
-    B.sample_posterior_graphed(design, num_warmup=20, num_samples=10, seed=7, device=cuda_device)
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    base = torch.cuda.memory_reserved(cuda_device)
-    torch.cuda.reset_peak_memory_stats(cuda_device)
-    peaks, left = [], []
-    for _ in range(3):
-        B.sample_posterior_graphed(design, num_warmup=20, num_samples=10, seed=7, device=cuda_device)
-        peaks.append(torch.cuda.max_memory_reserved(cuda_device))
-        left.append(torch.cuda.memory_reserved(cuda_device))
-    torch.cuda.empty_cache()
-    emptied = torch.cuda.memory_reserved(cuda_device)
-    print(f"reserved: base {base}, peaks {peaks}, after each fit {left}, emptied {emptied}")
-    assert max(peaks[1:]) <= peaks[0], peaks
-    assert max(left[1:]) <= left[0], left
-    assert emptied <= base, (base, emptied)
-
-
-@pytest.mark.gpu
 def test_cuda_fit_is_bitwise_reproducible(cuda_device):
     """Three kernel fits, seeds 7, 7 and 8: each stage one kernel launch,
-    no per-transition or logp launch, no graph replayed; the same seed
-    bitwise the same posterior."""
+    no per-transition or logp launch; the same seed bitwise the same
+    posterior."""
     design = B.build_quali_design(world()[0])
     H.hmc_stage.launches = H.hmc_transition.launches = H.hmc_logp.launches = 0
-    B.transition_replays = 0
     a, b, c = (B.sample_posterior(design, num_warmup=200, num_samples=100, seed=s,
                                   device=cuda_device) for s in (7, 7, 8))
-    launches = (H.hmc_stage.launches, H.hmc_transition.launches, H.hmc_logp.launches,
-                B.transition_replays)
-    assert launches == (9, 0, 0, 0)
+    launches = (H.hmc_stage.launches, H.hmc_transition.launches, H.hmc_logp.launches)
+    assert launches == (9, 0, 0)
     assert np.array_equal(a.raw, b.raw) and np.array_equal(a.accept_rate, b.accept_rate)
     assert not np.array_equal(a.raw, c.raw)
 
@@ -310,12 +265,36 @@ def test_batched_fits_equal_each_fits_own_launches(cuda_device):
             theta, torch.full((4,), 0.05), torch.ones(4, kd.dim),
             torch.randn(40, 4, kd.dim, generator=gen), torch.rand(40, 4, generator=gen),
             torch.rand(40, 4, generator=gen))])
+    H.hmc_stage.launches = 0
     stages = H.hmc_stages(kds, *map(list, zip(*inputs)), 48, True)
+    assert H.hmc_stage.launches == 2  # one per S
     for kd, x, got in zip(kds, inputs, stages):
         want = H.hmc_stage(kd, *x, 48, True)
         for field in ("theta", "lp", "eps", "var", "alpha_mean", "lp0", "trace_theta",
                       "trace_lp", "trace_eps", "trace_alpha"):
             assert torch.equal(getattr(got, field), getattr(want, field)), field
+    assert H.hmc_stage.launches == 2 + len(kds)
+
+
+@pytest.mark.gpu
+def test_a_fit_alone_in_its_s_equals_its_lone_fit(cuda_device):
+    """Three fits at 200 + 100, one of S = 2 beside two of S = 1: the batch
+    takes 3 x 2 launches, and the fit alone in its S (a table of one in each
+    stage's second launch) is bitwise its design's lone fit, as are the
+    others."""
+    sizes = ((8, 16, 12), (5, 10, 6), (5, 10, 6))
+    designs = [generated_design(600 + 100 * i, s, seed=50 + i) for i, s in enumerate(sizes)]
+    assert [H.slots(B.kernel_design(d, cuda_device)) for d in designs] == [2, 1, 1]
+    H.hmc_stage.launches = 0
+    batched = B.sample_posteriors(designs, num_warmup=200, num_samples=100, seed=9,
+                                  device=cuda_device)
+    assert H.hmc_stage.launches == 3 * 2
+    for design, got in zip(designs, batched):
+        want = B.sample_posterior(design, num_warmup=200, num_samples=100, seed=9,
+                                  device=cuda_device)
+        assert np.array_equal(got.raw, want.raw)
+        assert np.array_equal(got.accept_rate, want.accept_rate)
+        assert np.isfinite(got.raw).all()
 
 
 @pytest.mark.gpu

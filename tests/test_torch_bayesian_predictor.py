@@ -34,15 +34,15 @@ def test_chains_keep_their_own_state(world):
     """Chain 0's draws are bitwise the same whatever the other chains draw:
     no step size, dual-averaging state or mass is shared across chains."""
     design = B.build_quali_design(world[0])
-    logp, grad, _ = B.make_log_posterior(design, "cpu")
+    stages = B._plain_stages([B.kernel_design(design, "cpu")], 12)
     dim = B._param_dim(design)
     init, draws = B.chain_draws(9, 4, dim, 60 + 20)
     other_init, other = B.chain_draws(10, 4, dim, 60 + 20)
     init_b = torch.cat([init[:1], other_init[1:]])
     draws_b = tuple(torch.cat([a[:, :1], b[:, 1:]], dim=1) for a, b in zip(draws, other))
     with torch.inference_mode():
-        a, acc_a = B._run_chains(0.1 * init, logp, grad, 60, 12, draws)
-        b, acc_b = B._run_chains(0.1 * init_b, logp, grad, 60, 12, draws_b)
+        [(a, acc_a)] = B._staged_all([0.1 * init], stages, 60, [draws])
+        [(b, acc_b)] = B._staged_all([0.1 * init_b], stages, 60, [draws_b])
     assert not torch.equal(a[:, 1:], b[:, 1:])
     np.testing.assert_array_equal(a[:, 0].numpy(), b[:, 0].numpy())
     assert acc_a[0] == acc_b[0] and not torch.equal(acc_a[1:], acc_b[1:])

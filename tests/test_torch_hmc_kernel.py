@@ -29,7 +29,7 @@ import torch
 from monte_carlo_gp_torch.models import bayesian as B
 from monte_carlo_gp_torch.ops import hmc_kernel as H
 from monte_carlo_gp_tpu.models import bayesian as JB
-from torch_quali_world import world
+from torch_quali_world import generated_design, world
 
 torch.set_num_threads(2)
 
@@ -234,31 +234,32 @@ def test_wrapper_refuses_a_design_on_another_device(designs):
 
 
 def test_routes_on_the_cpu_are_the_eager_fit(designs):
-    """On the CPU the default fit (every transition through the kernel's
-    wrapper, which runs the plain version there) and the graphed fit equal
+    """On the CPU the default fit (every stage through the kernel's wrapper,
+    which runs the plain version there) and a batch of the one design equal
     the plain fit bitwise, and the wrapper launches nothing."""
     design = designs["world"][0]
     kw = dict(num_chains=2, num_warmup=20, num_samples=10, num_leapfrog=6, seed=3, device="cpu")
     plain = B.sample_posterior(design, plain=True, **kw)
     H.hmc_stage.launches = H.hmc_transition.launches = H.hmc_logp.launches = 0
-    for post in (B.sample_posterior(design, **kw), B.sample_posterior_graphed(design, **kw)):
+    for post in (B.sample_posterior(design, **kw), B.sample_posteriors([design], **kw)[0]):
         np.testing.assert_array_equal(post.raw, plain.raw)
         np.testing.assert_array_equal(post.accept_rate, plain.accept_rate)
     assert H.hmc_stage.launches == H.hmc_transition.launches == H.hmc_logp.launches == 0
 
 
-def _refuse_capacity(kd, theta, *args, **kw):
+def _refuse_capacity(kds, thetas, *args, **kw):
     """The wrapper's capacity check as it runs before a launch, on a card
-    whose shared memory took one effect column fewer than kd has."""
-    H.require_capacity(kd.n_cols, kd.n_cols - 1, "a card with one column too few")
+    whose shared memory took one effect column fewer than the fit's design
+    has."""
+    H.require_capacity(kds[0].n_cols, kds[0].n_cols - 1, "a card with one column too few")
 
 
-def _refuse_inputs(kd, theta, *args, **kw):
+def _refuse_inputs(kds, thetas, *args, **kw):
     """The wrapper's input checks on a float64 theta."""
-    return REAL_HMC_STAGE(kd, theta.double(), *args, **kw)
+    return REAL_HMC_STAGES(kds, [theta.double() for theta in thetas], *args, **kw)
 
 
-REAL_HMC_STAGE = H.hmc_stage
+REAL_HMC_STAGES = H.hmc_stages
 
 
 @pytest.mark.parametrize("refusal,match", [(_refuse_capacity, "at most"),
@@ -274,13 +275,102 @@ def test_a_refused_kernel_fails_the_bayesian_weekend(tmp_path, monkeypatch, refu
 
     events = []
     monkeypatch.setattr(P, "log_event", lambda name, **kw: events.append(name))
-    monkeypatch.setattr(H, "hmc_stage", refusal)  # the fit's first call into the wrapper
+    monkeypatch.setattr(H, "hmc_stages", refusal)  # the fit's first call into the wrapper
     p = P.F1Predictor(cache_dir=tmp_path, backend=SyntheticBackend(seed=2718), device="cpu",
                       quali_model="bayesian")
     p._bayes_model = B.BayesianQualiModel(num_warmup=4, num_samples=2, device="cpu")
     with pytest.raises(H.HMCKernelError, match=match):
         p.prepare_weekend(2024, "Bahrain")
     assert "alt_quali_fallback" not in events
+
+
+# the C entry's pointers of a fit in its order (csrc/hmc_kernel.cu:
+# mcgp_hmc_run), and the shape of each tensor the kernel writes
+C_POINTERS = ("counts", "bvec", "theta", "lp", "eps", "inv_mass", "z", "u_jit", "u_acc",
+              "theta_out", "lp_out", "alpha_out", "grad_out", "eps_out", "var_out", "lp0_out",
+              "trace_theta", "trace_lp", "trace_eps", "trace_alpha")
+OUT_SHAPES = {"theta_out": "cd", "var_out": "cd", "grad_out": "cd", "lp_out": "c",
+              "alpha_out": "c", "eps_out": "c", "lp0_out": "c", "trace_theta": "icd",
+              "trace_lp": "ic", "trace_eps": "ic", "trace_alpha": "ic"}
+# (T, D, C) of each fit: dims 26 and 25 (S = 1), 41 (S = 2); the mode; the
+# fits of each launch, by S in order of first appearance
+TABLE_CASES = {
+    "one fit": ([(5, 10, 6)], "warmup", [[0]]),
+    "several fits of one S": ([(5, 10, 6), (4, 10, 6), (5, 10, 6)], "warmup", [[0, 1, 2]]),
+    "a fit alone in its S": ([(8, 16, 12), (5, 10, 6), (8, 16, 12)], "warmup", [[0, 2], [1]]),
+    "sampling stage": ([(8, 16, 12), (5, 10, 6)], "sampling", [[0], [1]]),
+    "logp": ([(5, 10, 6)], "logp", [[0]]),
+    "logp with gradient": ([(8, 16, 12)], "logp+grad", [[0]]),
+    "transition": ([(5, 10, 6)], "transition", [[0]]),
+}
+
+
+def _fill_args_accepts(p: dict, iters: int, adapt: bool, n_leapfrog: int, chains: int) -> bool:
+    """csrc/hmc_kernel.cu's fill_args on one fit's pointers (0 for null)."""
+    if chains < 1 or iters < 0 or n_leapfrog < 0 or not p["lp_out"]:
+        return False
+    if iters > 0 and (n_leapfrog < 1 or not all(p[k] for k in (
+            "eps", "inv_mass", "z", "u_jit", "u_acc", "theta_out", "alpha_out"))):
+        return False
+    if adapt and (iters < 1 or not (p["eps_out"] and p["var_out"])):
+        return False
+    return not p["trace_theta"] or all(p[k] for k in ("trace_lp", "trace_eps", "trace_alpha"))
+
+
+@pytest.mark.parametrize("case", list(TABLE_CASES))
+def test_launch_tables_hold_every_fit_in_the_c_entrys_order(case):
+    """The table every launch of the kernel takes (`launch_tables`), on CPU
+    tensors: one table per distinct S, each fit's row its pointers in the C
+    entry's order (absent ones 0), its sizes (n, T, D, C, chains), y^T y and
+    prior precisions; every row one that fill_args accepts in the mode of
+    its launch (a warmup or sampling stage, the logp entry at iters = 0, the
+    one-transition entry at iters = 1), its outputs of the shapes the kernel
+    writes."""
+    sizes, mode, groups = TABLE_CASES[case]
+    designs = [generated_design(300 + 50 * i, s, seed=40 + i) for i, s in enumerate(sizes)]
+    kds = [B.kernel_design(d, "cpu") for d in designs]
+    iters, adapt, n_leapfrog = {"warmup": (5, True, 4), "sampling": (5, False, 4),
+                                "logp": (0, False, 0), "logp+grad": (0, False, 0),
+                                "transition": (1, False, 4)}[mode]
+    thetas, tensors = [], []
+    for i, kd in enumerate(kds):
+        chains = 2 + i
+        theta, eps0, inv_mass, z, u_jit, u_acc = _stage_inputs(kd, seed=i, iters=max(iters, 1),
+                                                               chains=chains)
+        if mode in ("warmup", "sampling"):
+            x = H._stage_tensors(theta, eps0, inv_mass, z, u_jit, u_acc, adapt)
+        elif mode == "transition":
+            x = H._transition_tensors(theta, kd.logp_fn(theta), eps0, inv_mass, z[0], u_jit[0],
+                                      u_acc[0])
+        else:
+            x = H._logp_tensors(theta, grad=mode == "logp+grad")
+        thetas.append(theta)
+        tensors.append(x)
+    tables = H.launch_tables(kds, thetas, tensors)
+    assert [members for members, *_ in tables] == groups
+    for members, ptrs, size_rows, yty, prec in tables:
+        assert {H.slots(kds[i]) for i in members} == {H.slots(kds[members[0]])}
+        assert (ptrs.dtype, size_rows.dtype, yty.dtype, prec.dtype) == (
+            np.uint64, np.int32, np.float64, np.float32)
+        assert ptrs.shape == (len(members), 20) and size_rows.shape == (len(members), 5)
+        for row, i in enumerate(members):
+            kd, theta, x = kds[i], thetas[i], tensors[i]
+            named = {"counts": kd.counts, "bvec": kd.b, "theta": theta, **x}
+            want = [named[k].data_ptr() if named.get(k) is not None else 0 for k in C_POINTERS]
+            assert ptrs[row].tolist() == want
+            assert size_rows[row].tolist() == [kd.n_rows, *kd.sizes, theta.shape[0]]
+            assert yty[row] == kd.yty and prec[row].tolist() == list(kd.prior_prec)
+            p = dict(zip(C_POINTERS, ptrs[row].tolist()))
+            assert _fill_args_accepts(p, iters, adapt, n_leapfrog, theta.shape[0])
+            dims = {"c": theta.shape[0], "d": kd.dim, "i": iters}
+            for k, letters in OUT_SHAPES.items():
+                if x.get(k) is not None:
+                    assert tuple(x[k].shape) == tuple(dims[c] for c in letters), k
+                    assert x[k].dtype == torch.float32 and x[k].is_contiguous()
+            if mode == "logp":
+                assert [k for k in C_POINTERS if p[k]] == ["counts", "bvec", "theta", "lp_out"]
+            if mode == "transition":  # from the given lp, writing no trace
+                assert p["lp"] and not (p["lp0_out"] or p["trace_theta"] or p["eps_out"])
 
 
 def test_ptxas_facts_reads_the_kernel_entry():
@@ -484,7 +574,7 @@ def test_stage_refuses_bad_inputs(designs, case):
 
 
 def test_rhat_by_seed_on_the_cpu(designs):
-    """`validate.hmc.rhat_by_seed`: on the CPU the kernel fit and the graphed
+    """`validate.hmc.rhat_by_seed`: on the CPU the kernel fit and the eager
     fit are both the plain fit, so their R-hats are equal per seed; the
     seeds give different fits."""
     from monte_carlo_gp_torch.validate import hmc
@@ -493,8 +583,8 @@ def test_rhat_by_seed_on_the_cpu(designs):
                             num_samples=10, num_leapfrog=6)
     assert [r["seed"] for r in rows] == [3, 4]
     for r in rows:
-        assert r["kernel"]["rhat"] == r["graph"]["rhat"] and np.isfinite(r["kernel"]["rhat"])
-        assert r["kernel"]["accept"] == r["graph"]["accept"]
+        assert r["kernel"]["rhat"] == r["plain"]["rhat"] and np.isfinite(r["kernel"]["rhat"])
+        assert r["kernel"]["accept"] == r["plain"]["accept"]
     assert rows[0]["kernel"]["rhat"] != rows[1]["kernel"]["rhat"]
 
 
@@ -509,6 +599,6 @@ def test_rhat_script_on_the_cpu(capsys):
     assert hmc.main(["--device", "cpu", "--seeds", "5", "--warmup", "4", "--samples", "4"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     row, summary = json.loads(lines[-2]), json.loads(lines[-1])
-    assert row["seed"] == 5 and row["kernel"]["rhat"] == row["graph"]["rhat"]
+    assert row["seed"] == 5 and row["kernel"]["rhat"] == row["plain"]["rhat"]
     assert summary["rows"] == 5106 and summary["seeds"] == [5]
-    assert summary["kernel"]["rhat_max"] == summary["graph"]["rhat_max"] == row["kernel"]["rhat"]
+    assert summary["kernel"]["rhat_max"] == summary["plain"]["rhat_max"] == row["kernel"]["rhat"]

@@ -393,7 +393,8 @@ class F1DataLoader:
 
     def load_season_data(self, season: int) -> dict:
         """All qualifying/race/sprint results for a season, in calendar
-        order, as {(driver, value)} event lists for the Elo builder."""
+        order, as {(driver, value)} event lists for the Elo builder; counts
+        `elo.events` (+ the lists made)."""
         results = {"qualifying": [], "races": [], "sprints": [], "sprint_qualifying": []}
         for ev in self.past_events(season):
             name = ev["EventName"]
@@ -418,6 +419,9 @@ class F1DataLoader:
                     extracted = extract_race_results(s)
                     if extracted:
                         results["sprints"].append(extracted)
+        events = sum(len(lists) for lists in results.values())
+        if events:
+            count("elo.events", events)
         return results
 
     # -- cache building -------------------------------------------------------
@@ -465,36 +469,79 @@ class F1DataLoader:
 
 
 # -- result extraction (reference data_loader.py:86-130) ----------------------
+#
+# Each event list is one numpy pass over the frame's columns with pandas'
+# semantics, so it equals what `groupby("Driver")` / `sort_values` give, order
+# included: drivers in sorted key order, NA drivers dropped, quicksort where
+# pandas sorts (unstable: ties fall as pandas lets them fall), NaN-skipping
+# reductions.
+
+
+def _floats(laps: pd.DataFrame, col: str) -> np.ndarray:
+    """Column `col` as float64 with NA as NaN, from any numeric, boolean,
+    nullable or object dtype."""
+    return laps[col].to_numpy(dtype=float, na_value=np.nan)
+
+
+def _flags(values: np.ndarray) -> np.ndarray:
+    """`fillna(False).astype(bool)` of a column read by `_floats`."""
+    return (values != 0) & ~np.isnan(values)
+
+
+def _drivers(laps: pd.DataFrame) -> tuple[np.ndarray, np.ndarray]:
+    """(`Driver` as Python objects, its NA mask)."""
+    col = laps["Driver"]
+    return col.to_numpy(dtype=object), col.isna().to_numpy()
+
+
+def _sort_order(col: pd.Series) -> np.ndarray:
+    """The row order of `frame.sort_values(col.name)` (pandas' `nargsort`):
+    a quicksort of the non-NA values in the column's own numpy dtype, then
+    the NA rows in row order."""
+    na = col.isna().to_numpy()
+    numpy_dtype = getattr(col.dtype, "numpy_dtype", col.dtype)  # Int64 -> int64
+    values = col.to_numpy(dtype=numpy_dtype, na_value=0)[~na]
+    return np.concatenate([np.flatnonzero(~na)[values.argsort(kind="quicksort")],
+                           np.flatnonzero(na)])
 
 
 def extract_quali_results(laps: pd.DataFrame) -> list[tuple[str, float]]:
     """(driver, best_accurate_lap_seconds) sorted fastest-first."""
-    if "IsAccurate" in laps.columns and laps["IsAccurate"].notna().any():
-        valid = laps[laps["IsAccurate"].fillna(False).astype(bool)]
+    accurate = _floats(laps, "IsAccurate") if "IsAccurate" in laps.columns else None
+    if accurate is not None and not np.isnan(accurate).all():
+        valid = _flags(accurate)
     else:
-        mask = pd.Series(True, index=laps.index)
+        valid = np.ones(len(laps), bool)
         for col in ("PitInTime", "PitOutTime"):
             if col in laps.columns:
-                mask &= laps[col].isna()
+                valid &= np.isnan(_floats(laps, col))
         if "Deleted" in laps.columns:
-            mask &= laps["Deleted"].fillna(False).astype(bool) != True  # noqa: E712
-        valid = laps[mask]
-    if valid.empty:
-        valid = laps
-    best = valid.groupby("Driver")["LapTime"].min().sort_values()
-    return [(d, float(t)) for d, t in best.items() if pd.notna(t)]
+            valid &= ~_flags(_floats(laps, "Deleted"))
+    if not valid.any():
+        valid[:] = True
+    drivers, no_driver = _drivers(laps)
+    valid &= ~no_driver
+    names, group = np.unique(drivers[valid], return_inverse=True)
+    times = _floats(laps, "LapTime")[valid]
+    best = np.full(len(names), np.inf)
+    np.fmin.at(best, group, times)
+    timed = np.zeros(len(names), bool)
+    timed[group[~np.isnan(times)]] = True
+    names, best = names[timed], best[timed]
+    return [(names[i], float(best[i])) for i in best.argsort(kind="quicksort")]
 
 
 def extract_race_results(laps: pd.DataFrame) -> list[tuple[str, int]]:
-    """(driver, final_position) from each driver's last lap."""
+    """(driver, final_position) from each driver's last lap with a
+    position, laps in `LapNumber` order."""
     if laps.empty or "Position" not in laps.columns:
         return []
     if "LapNumber" in laps.columns:
-        laps = laps.sort_values("LapNumber")
-    final = laps.groupby("Driver").last()
-    out = []
-    for d, row in final.iterrows():
-        pos = row.get("Position")
-        if pd.notna(pos):
-            out.append((d, int(pos)))
-    return out
+        rows = _sort_order(laps["LapNumber"])
+    else:
+        rows = np.arange(len(laps))
+    drivers, no_driver = _drivers(laps)
+    positions = _floats(laps, "Position")
+    rows = rows[~(no_driver[rows] | np.isnan(positions[rows]))]
+    last = dict(zip(drivers[rows].tolist(), rows.tolist()))  # a driver's later rows overwrite
+    return [(d, int(positions[last[d]])) for d in sorted(last)]

@@ -21,7 +21,8 @@ Endpoints:
                     (serve.handle: a POST; its serve.read, serve.predict with
                     serve.plan, the plan-cache lookup or prepare, and the
                     prepare's weekend.* spans beneath, serve.reply), and
-                    "frames": the parquet frame cache's {"read", "hit"}
+                    "frames": the parquet frame cache's {"read", "hit"}, and
+                    "elo_events": the event lists the Elo builds extracted
     POST /predict   JSON request -> the predict_weekend result dict plus a
                     "server" block; the same seed gives the same
                     probabilities, bitwise
@@ -681,12 +682,13 @@ def make_handler(service: PredictionService):
                     **outage,
                 })
             elif self.path == "/stats":
-                frames = RECORDER.counters
+                counters = RECORDER.counters
                 self._reply(200, {
                     **service.stats,
                     "spans": RECORDER.tree("serve."),
-                    "frames": {"read": frames.get("frames.read", 0),
-                               "hit": frames.get("frames.hit", 0)},
+                    "frames": {"read": counters.get("frames.read", 0),
+                               "hit": counters.get("frames.hit", 0)},
+                    "elo_events": counters.get("elo.events", 0),
                 })
             else:
                 self._reply(404, {"error": f"no such endpoint: {self.path}"})

@@ -34,6 +34,7 @@ import dataclasses
 import json
 from pathlib import Path
 
+import numpy as np
 import pandas as pd
 
 from monte_carlo_gp_torch import config as cfg
@@ -43,7 +44,7 @@ from monte_carlo_gp_torch.ops.race_kernel import MAX_DRIVERS, run_monte_carlo_se
 from monte_carlo_gp_torch.parallel.mesh import Mesh, resolve_mesh
 from monte_carlo_gp_torch.parallel.sharded import simulate_season_sharded
 from monte_carlo_gp_torch.utils.logging import log_event
-from monte_carlo_gp_torch.utils.profiling import span
+from monte_carlo_gp_torch.utils.profiling import count, span
 from monte_carlo_gp_torch.validate.metrics import (
     brier_score,
     calibration_analysis,
@@ -87,39 +88,35 @@ def _pin(loader, cutoffs, idx: int, enabled: bool) -> None:
         loader.set_now(cutoffs[idx])
 
 
+def _classified(res: pd.DataFrame | None) -> tuple[list, np.ndarray]:
+    """(abbreviations, positions) of `res`'s rows with a `Position`, in the
+    order `dropna` / `astype(int)` / `sort_values("Position")` gives them:
+    the same quicksort over the same int64 positions, so tied positions fall
+    as pandas lets them fall."""
+    if res is None or res.empty or "Position" not in res.columns:
+        return [], np.empty(0, np.int64)
+    position = res["Position"].to_numpy(dtype=float, na_value=np.nan)
+    rows = np.flatnonzero(~np.isnan(position))
+    positions = position[rows].astype(int)
+    order = positions.argsort(kind="quicksort")
+    abbreviations = res["Abbreviation"].tolist() if len(rows) else []
+    return [abbreviations[i] for i in rows[order]], positions[order]
+
+
 def get_actual_results(loader, season: int, race: str) -> dict:
     """Pole / winner / podium plus ordered result lists for Elo updates
-    (validation.py:30-79)."""
-    pole = winner = None
-    podium: list[str] = []
-    quali_results: list[str] = []
-    race_results: list[str] = []
-
-    q = loader.load_results(season, race, "Q")
-    if q is not None and not q.empty and "Position" in q.columns:
-        q_valid = q.dropna(subset=["Position"]).copy()
-        if not q_valid.empty:
-            q_valid["Position"] = q_valid["Position"].astype(int)
-            ordered = q_valid.sort_values("Position")
-            quali_results = ordered["Abbreviation"].tolist()
-            top = ordered[ordered["Position"] == 1]
-            pole = top["Abbreviation"].iloc[0] if not top.empty else None
-
-    r = loader.load_results(season, race, "R")
-    if r is not None and not r.empty and "Position" in r.columns:
-        r_valid = r.dropna(subset=["Position"]).copy()
-        if not r_valid.empty:
-            r_valid["Position"] = r_valid["Position"].astype(int)
-            ordered = r_valid.sort_values("Position")
-            race_results = ordered["Abbreviation"].tolist()
-            top = ordered[ordered["Position"] == 1]
-            winner = top["Abbreviation"].iloc[0] if not top.empty else None
-            podium = ordered[ordered["Position"] <= 3]["Abbreviation"].tolist()
-
+    (validation.py:30-79); counts `elo.events` (+ the non-empty lists)."""
+    quali_results, quali_positions = _classified(loader.load_results(season, race, "Q"))
+    race_results, race_positions = _classified(loader.load_results(season, race, "R"))
+    poles = np.flatnonzero(quali_positions == 1)
+    winners = np.flatnonzero(race_positions == 1)
+    events = bool(quali_results) + bool(race_results)
+    if events:
+        count("elo.events", events)
     return {
-        "pole": pole,
-        "winner": winner,
-        "podium": podium,
+        "pole": quali_results[poles[0]] if len(poles) else None,
+        "winner": race_results[winners[0]] if len(winners) else None,
+        "podium": [d for d, p in zip(race_results, race_positions) if p <= 3],
         "quali_results": quali_results,
         "race_results": race_results,
     }

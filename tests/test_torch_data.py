@@ -8,10 +8,13 @@ the outputs are equal (frames exactly, ratings to the JAX test's 1e-4).
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pandas as pd
+import pytest
 
+from monte_carlo_gp_torch.data import loader as port_loader
 from monte_carlo_gp_torch.data.elo_cache import load_elo, load_with_priority, save_elo
 from monte_carlo_gp_torch.data.loader import (
     F1DataLoader,
@@ -20,8 +23,11 @@ from monte_carlo_gp_torch.data.loader import (
 )
 from monte_carlo_gp_torch.data.synthetic import SyntheticBackend
 from monte_carlo_gp_torch.models.elo import F1EloSystem
+from monte_carlo_gp_torch.utils.profiling import RECORDER
+from monte_carlo_gp_torch.validate import backtest as port_backtest
 from monte_carlo_gp_tpu.data import elo_cache as jax_elo_cache
 from monte_carlo_gp_tpu.data import loader as jax_loader
+from monte_carlo_gp_tpu.validate import backtest as jax_backtest
 from monte_carlo_gp_tpu.data.synthetic import SyntheticBackend as JaxSynthetic
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -73,6 +79,181 @@ def test_extract_race_results_last_lap():
                          "Position": [2.0, 1.0, 2.0]})
     assert sorted(extract_race_results(laps)) == [("A", 1), ("B", 2)]
     assert extract_race_results(laps) == jax_loader.extract_race_results(laps)
+
+
+# -- the Elo build's event lists against the JAX package's pandas forms ---------
+
+WORLD_SEASONS = (2023, 2024)
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    """A two-season synthetic world in the offline parquet cache, read back
+    offline as the benchmark's cells and `--offline` users read it."""
+    cache_dir = tmp_path_factory.mktemp("world")
+    F1DataLoader(cache_dir=cache_dir, backend=SyntheticBackend(seed=11)).build_cache(
+        list(WORLD_SEASONS), sessions=("FP2", "Q", "SQ", "S", "R"))
+    return cache_dir
+
+
+def _world_frames(cache_dir):
+    """Every Q / SQ / R / S laps frame and Q / R results frame of the world."""
+    loader = F1DataLoader(cache_dir=cache_dir, offline=True)
+    laps, results = [], []
+    for season in WORLD_SEASONS:
+        for ev in loader.past_events(season):
+            for session in ("Q", "SQ", "R", "S"):
+                frame = loader.load_session(season, ev["EventName"], session)
+                if not frame.empty:
+                    laps.append(frame)
+            results += [loader.load_results(season, ev["EventName"], s) for s in ("Q", "R")]
+    assert len(laps) == 104 and len(results) == 80
+    return laps, results
+
+
+def _laps(drivers, lap_time, **cols):
+    return pd.DataFrame({"Driver": drivers, "LapTime": lap_time, **cols})
+
+
+def _edge_frames(case):
+    """(laps frames, results frames) of one edge case."""
+    field = [f"D{i:02d}" for i in range(20)]
+    nan = np.nan
+    if case == "tied_best_laps":
+        rng = np.random.default_rng(3)
+        drivers = [d for d in field for _ in range(3)]
+        times = rng.choice([88.5, 88.75, 89.0], size=60)
+        tied = _laps(drivers, times, IsAccurate=True, LapNumber=np.tile([1, 2, 3], 20),
+                     Position=rng.choice([1.0, 2.0, 3.0], size=60))
+        all_tied = _laps(field[::-1], np.full(20, 90.0), IsAccurate=True,
+                         LapNumber=np.ones(20, np.int64), Position=np.ones(20))
+        results = pd.DataFrame({"Abbreviation": field[::-1], "Position": rng.choice(
+            [1.0, 1.0, 2.0, 3.0, 3.0, 5.0], size=20)})
+        return [tied, all_tied], [results]
+    if case == "nan_positions":
+        laps = _laps(["A", "A", "A", "B", "B", "C", "C"], [90.0] * 7,
+                     LapNumber=[1, 2, 3, 1, 2, 1, 2],
+                     Position=[3.0, 2.0, nan, 1.0, 1.0, nan, nan])
+        results = pd.DataFrame({"Abbreviation": ["A", "B", "C", "D"],
+                                "Position": [2.0, nan, 1.0, nan]})
+        none_classified = pd.DataFrame({"Abbreviation": ["A", "B"], "Position": [nan, nan]})
+        return [laps], [results, none_classified]
+    if case == "lap_numbers":
+        rng = np.random.default_rng(5)
+        drivers = rng.choice(field, size=400)
+        laps_n = rng.integers(1, 12, size=400)  # unsorted, duplicate per driver too
+        positions = rng.integers(1, 21, size=400).astype(float)
+        unsorted = _laps(drivers, rng.uniform(88, 92, 400), LapNumber=laps_n,
+                         Position=positions)
+        float_laps = unsorted.assign(LapNumber=np.where(laps_n == 4, nan, laps_n))
+        no_lap_number = unsorted.drop(columns="LapNumber")
+        return [unsorted, float_laps, no_lap_number], []
+    if case == "is_accurate":
+        drivers = ["A", "A", "B", "B", "C"]
+        times = [90.0, 85.0, 88.0, 86.0, 87.0]
+        no_column = _laps(drivers, times, PitInTime=[nan, 1.0, nan, nan, nan])
+        all_nan = no_column.assign(IsAccurate=[None] * 5)
+        float_nan = no_column.assign(IsAccurate=[nan, 1.0, nan, 0.0, nan])
+        return [no_column, all_nan, float_nan], []
+    if case == "deleted_and_pits":
+        laps = _laps(["A", "A", "A", "B", "B", "B", "C"],
+                     [85.0, 86.0, 90.0, 84.0, 88.0, 89.0, 87.0],
+                     PitInTime=[nan, nan, nan, nan, 1.0, nan, nan],
+                     PitOutTime=[1.0, nan, nan, nan, nan, nan, nan],
+                     Deleted=[False, None, True, True, False, nan, False])
+        return [laps, laps.drop(columns=["PitInTime"])], []
+    if case == "no_valid_lap":
+        none_left = _laps(["A", "B", "B", "C"], [86.0, 85.0, 84.0, 87.0],
+                          Deleted=[True, True, True, True])
+        untimed = _laps(["A", "A", "B", "C", "C"], [nan, nan, 85.0, 87.0, nan],
+                        IsAccurate=[True, True, True, True, True])
+        nan_driver = untimed.assign(Driver=["A", None, "B", nan, "C"])
+        return [none_left, untimed, nan_driver], []
+    if case == "fastf1_nullable":
+        laps = pd.DataFrame({
+            "Driver": pd.array(["VER", "HAM", "VER", "LEC", "HAM", None, "LEC"], "string"),
+            "LapTime": pd.array([91.0, 90.5, 90.2, None, 90.5, 89.0, 90.9], "Float64"),
+            "LapNumber": pd.array([2, 1, 1, 2, 2, 1, None], "Int64"),
+            "IsAccurate": pd.array([True, True, None, True, False, True, True], "boolean"),
+            "PitInTime": [nan, nan, 1.0, nan, nan, nan, nan],
+            "PitOutTime": np.array([None, 1.0, None, None, None, None, None], object),
+            "Deleted": np.array([False, None, False, False, True, False, False], object),
+            "Position": pd.array([1.0, 3.0, 2.0, 2.0, None, 4.0, 2.0], "Float64"),
+        })
+        no_accuracy = laps.assign(IsAccurate=pd.array([None] * 7, "boolean"))
+        results = pd.DataFrame({
+            "Abbreviation": pd.array(["VER", "HAM", "LEC", "SAI"], "string"),
+            "Position": pd.array([2.0, 1.0, None, 3.0], "Float64"),
+        })
+        return [laps, no_accuracy], [results]
+    raise AssertionError(case)
+
+
+@pytest.mark.parametrize("case", [
+    "world", "tied_best_laps", "nan_positions", "lap_numbers", "is_accurate",
+    "deleted_and_pits", "no_valid_lap", "fastf1_nullable",
+])
+def test_event_lists_equal_the_jax_packages(case, request):
+    """Every event list the Elo build reads (`extract_quali_results`,
+    `extract_race_results`, `get_actual_results`) equals the JAX package's
+    pandas form, order, types and ties included."""
+    if case == "world":
+        laps_frames, result_frames = _world_frames(request.getfixturevalue("world"))
+    else:
+        laps_frames, result_frames = _edge_frames(case)
+    for laps in laps_frames:
+        for port, jax in ((extract_quali_results, jax_loader.extract_quali_results),
+                          (extract_race_results, jax_loader.extract_race_results)):
+            got, want = port(laps), jax(laps)
+            assert got == want
+            assert [tuple(map(type, e)) for e in got] == [tuple(map(type, e)) for e in want]
+    for results in result_frames:
+        stub = SimpleNamespace(load_results=lambda season, race, session: results)
+        got = port_backtest.get_actual_results(stub, 2024, "race")
+        assert got == jax_backtest.get_actual_results(stub, 2024, "race")
+    if case == "world":
+        assert sum(bool(extract_race_results(f)) for f in laps_frames) == 52
+
+
+def test_elo_events_counter_and_bitwise_ratings(world, monkeypatch):
+    """A fresh predictor's 2024 weekend counts `elo.events` once per event
+    list of its two seasons' `load_season_data` (104 on this world), and its
+    ratings are bitwise those built from the JAX package's pandas
+    extraction. A walk-forward season adds its actuals' non-empty lists."""
+    from monte_carlo_gp_torch.models.predictor import F1Predictor
+
+    def fresh():
+        return F1Predictor(cache_dir=world, offline=True, device="cpu")
+
+    loader = F1DataLoader(cache_dir=world, offline=True)
+    events = sum(len(lists) for s in WORLD_SEASONS
+                 for lists in loader.load_season_data(s).values())
+    before = RECORDER.copy()
+    numpy_built = fresh()
+    numpy_built.prepare_weekend(2024, "Bahrain Grand Prix")
+    assert RECORDER.since(before).counters.get("elo.events") == events == 104
+
+    with monkeypatch.context() as m:
+        m.setattr(port_loader, "extract_quali_results", jax_loader.extract_quali_results)
+        m.setattr(port_loader, "extract_race_results", jax_loader.extract_race_results)
+        pandas_built = fresh()
+        pandas_built._build_elo(2024)
+    for built in (numpy_built, pandas_built):
+        built.elo_system.flush()
+    assert numpy_built.elo_system.names == pandas_built.elo_system.names
+    assert numpy_built.elo_system._ratings.tobytes() == pandas_built.elo_system._ratings.tobytes()
+
+    walk = fresh()
+    before = RECORDER.copy()
+    _, acts = port_backtest.prepare_season_plans(walk, 2024, verbose=False)
+    counted = RECORDER.since(before).counters.get("elo.events")
+    first = F1DataLoader(cache_dir=world, offline=True)
+    port_backtest._pin(first, port_backtest._race_cutoffs(first, 2024), 0, True)
+    expected = sum(len(lists) for s in WORLD_SEASONS
+                   for lists in first.load_season_data(s).values())
+    expected += sum(bool(a["quali_results"]) + bool(a["race_results"]) for a in acts)
+    assert len(acts) == 20
+    assert counted == expected == 52 + 2 * 20
 
 
 def test_loader_offline_cache_roundtrip(tmp_path):

@@ -480,6 +480,7 @@ def test_serve_http_end_to_end(tmp_path):
         assert status == 200
         assert stats["ok"] >= 2 and stats["rejected"] >= 1
         assert stats["plan_cache_hits"] >= 2
+        assert stats["elo_events"] > 0  # the warm-up plan built the Elo ratings
 
         status, _ = _get(f"{base}/nope")
         assert status == 404

@@ -86,7 +86,8 @@ def test_a_span_that_raises_closes(monkeypatch):
 
 def test_prepare_weekend_spans_share_the_profile_clock(tmp_path):
     """Under a CPU profile a synthetic-world `prepare_weekend` records
-    `weekend.prepare` and its six phases, each with its parent; the phases
+    `weekend.prepare` and its six phases, each with its parent, and the
+    Elo build's `elo.events` increments inside `weekend.elo`; the phases
     cover at least 90% of it; the profile holds each as a range whose
     length is the recorder's."""
     with profile(activities=[ProfilerActivity.CPU]):  # the ranges' first call, untimed
@@ -96,7 +97,10 @@ def test_prepare_weekend_spans_share_the_profile_clock(tmp_path):
     t0 = time.perf_counter_ns()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         pred.prepare_weekend(2024, "Bahrain")
-    events = {e.name: e for e in _events_since(t0)}
+    recorded = _events_since(t0)
+    increments = [e for e in recorded if e.start_ns == e.end_ns]  # a counter's
+    assert increments and {(e.name, e.parent) for e in increments} == {("elo.events", "weekend.elo")}
+    events = {e.name: e for e in recorded if e not in increments}
     assert set(events) == {"weekend.prepare", *PREPARE_CHILDREN}
     parent = events["weekend.prepare"]
     assert parent.parent is None and parent.request is None

@@ -13,9 +13,17 @@ Frames use the normalized schema shared with the FastF1 backend: lap times
 in float seconds, FastF1-compatible column names (Driver, Team, LapTime,
 LapNumber, Sector1Time..3, Compound, IsAccurate, PitInTime, PitOutTime,
 TrackTemp, Rainfall, Position).
+
+A season fields the drivers of its entry list (`ENTRY_LISTS`), else the
+2025 map `cfg.DRIVER_TEAMS`. A driver or team that the 2025 map does not
+name draws its skill or pace from a generator of its own, keyed by its
+name, so the seasons that field the 2025 map are the same frame for frame
+whatever the entry lists hold.
 """
 
 from __future__ import annotations
+
+import zlib
 
 import numpy as np
 import pandas as pd
@@ -50,6 +58,28 @@ WET_EVENTS: tuple[str, ...] = ("Belgium", "Brazil")  # rainfall in these rounds
 
 _SESSION_IDS = {"FP1": 1, "FP2": 2, "FP3": 3, "Q": 4, "SQ": 5, "S": 6, "R": 7}
 
+# The fields that differ from the 2025 map, driver -> team in the published
+# order. 2026: the FIA's entry list of 11 teams and 22 cars (Cadillac
+# admitted in March 2025; Sauber races as Audi).
+ENTRY_LISTS: dict[int, dict[str, str]] = {
+    2026: {
+        "NOR": "McLaren", "PIA": "McLaren",
+        "LEC": "Ferrari", "HAM": "Ferrari",
+        "VER": "Red Bull", "HAD": "Red Bull",
+        "RUS": "Mercedes", "ANT": "Mercedes",
+        "ALO": "Aston Martin", "STR": "Aston Martin",
+        "GAS": "Alpine", "COL": "Alpine",
+        "ALB": "Williams", "SAI": "Williams",
+        "LAW": "Racing Bulls", "LIN": "Racing Bulls",
+        "OCO": "Haas", "BEA": "Haas",
+        "HUL": "Audi", "BOR": "Audi",
+        "PER": "Cadillac", "BOT": "Cadillac",
+    },
+}
+# The second word of the generator keys of a newcomer's skill and a new
+# team's pace: no season, so no key of a session's draws.
+_NEW_DRIVER, _NEW_TEAM = 1, 2
+
 
 class SyntheticBackend:
     """Session backend producing deterministic plausible seasons."""
@@ -83,13 +113,28 @@ class SyntheticBackend:
             (self.seed, season, event_idx, _SESSION_IDS.get(session, 0))
         )
 
+    @staticmethod
+    def roster(season: int) -> dict[str, str]:
+        """Driver -> team of the season's field."""
+        return ENTRY_LISTS.get(season, cfg.DRIVER_TEAMS)
+
+    def _own_draw(self, tag: int, name: str, scale: float) -> float:
+        rng = np.random.default_rng((self.seed, tag, zlib.crc32(name.encode())))
+        return float(rng.normal(0.0, scale))
+
     def _skill(self, season: int) -> np.ndarray:
         """Driver pace offsets (seconds/lap) for a season; mild drift."""
-        drift = np.random.default_rng((self.seed, season)).normal(
-            0.0, 0.12, len(self.drivers)
-        )
-        team = np.array([self._team_pace[cfg.DRIVER_TEAMS[d]] for d in self.drivers])
-        return self._base_skill + team + drift
+        roster = self.roster(season)
+        drift = np.random.default_rng((self.seed, season)).normal(0.0, 0.12, len(roster))
+        known = dict(zip(self.drivers, self._base_skill))
+        base = np.array([
+            known[d] if d in known else self._own_draw(_NEW_DRIVER, d, 0.45) for d in roster
+        ])
+        team = np.array([
+            self._team_pace[t] if t in self._team_pace else self._own_draw(_NEW_TEAM, t, 0.35)
+            for t in roster.values()
+        ])
+        return base + team + drift
 
     # -- backend protocol ----------------------------------------------------
 
@@ -126,14 +171,16 @@ class SyntheticBackend:
         circuit = CALENDAR[idx]
         rng = self._rng(season, idx, session)
         skill = self._skill(season)
+        teams = self.roster(season)
+        drivers = list(teams)
         base = self._base_lap(circuit)
         wet = circuit in WET_EVENTS and session in ("Q", "R")
         track_temp = float(rng.uniform(18 if wet else 25, 30 if wet else 50))
 
         rows = []
         if session in ("Q", "SQ"):
-            n_laps_by_driver = rng.integers(2, 9, len(self.drivers))
-            for di, driver in enumerate(self.drivers):
+            n_laps_by_driver = rng.integers(2, 9, len(drivers))
+            for di, driver in enumerate(drivers):
                 # Better drivers run more laps (proxy for reaching Q3).
                 n = int(n_laps_by_driver[di]) + (3 if skill[di] < 0 else 0)
                 for lap_n in range(1, n + 1):
@@ -143,12 +190,12 @@ class SyntheticBackend:
                     lt = s1 + s2 + s3 + (8.0 if wet else 0.0)
                     rows.append(
                         self._lap_row(
-                            season, circuit, session, driver, lap_n, lt,
+                            teams[driver], driver, lap_n, lt,
                             (s1, s2, s3), "SOFT", True, track_temp, wet,
                         )
                     )
         elif session.startswith("FP"):
-            for di, driver in enumerate(self.drivers):
+            for di, driver in enumerate(drivers):
                 n = int(rng.integers(12, 25))
                 compound_cycle = ["SOFT", "MEDIUM", "HARD"]
                 stint_age = 0
@@ -171,7 +218,7 @@ class SyntheticBackend:
                     s3 = lt * 0.32
                     rows.append(
                         self._lap_row(
-                            season, circuit, session, driver, lap_n, lt,
+                            teams[driver], driver, lap_n, lt,
                             (s1, s2, s3), compound, not is_pit, track_temp, False,
                             pit_out=is_pit,
                         )
@@ -182,7 +229,7 @@ class SyntheticBackend:
             # simulate a crude race to get evolving positions
             finish = self._race_order(season, idx, session)
             dnf_laps = self._dnf_laps(season, idx, session, laps_total)
-            for di, driver in enumerate(self.drivers):
+            for di, driver in enumerate(drivers):
                 last = dnf_laps.get(driver, laps_total)
                 compound = "MEDIUM"
                 stint = 0
@@ -197,7 +244,7 @@ class SyntheticBackend:
                     pos = int(np.where(finish == di)[0][0]) + 1
                     rows.append(
                         self._lap_row(
-                            season, circuit, session, driver, lap_n, lt,
+                            teams[driver], driver, lap_n, lt,
                             (lt * 0.3, lt * 0.38, lt * 0.32), compound, True,
                             track_temp, wet, position=pos,
                         )
@@ -207,13 +254,14 @@ class SyntheticBackend:
             return None
         return pd.DataFrame(rows)
 
+    @staticmethod
     def _lap_row(
-        self, season, circuit, session, driver, lap_n, lt, sectors, compound,
+        team, driver, lap_n, lt, sectors, compound,
         accurate, track_temp, rainfall, pit_out=False, position=np.nan,
     ) -> dict:
         return {
             "Driver": driver,
-            "Team": cfg.DRIVER_TEAMS[driver],
+            "Team": team,
             "LapTime": float(lt),
             "LapNumber": int(lap_n),
             "Sector1Time": float(sectors[0]),
@@ -234,7 +282,7 @@ class SyntheticBackend:
         rng = np.random.default_rng(
             (self.seed, season, event_idx, _SESSION_IDS.get(session, 0), 99)
         )
-        score = self._skill(season) + rng.normal(0, 0.6, len(self.drivers))
+        score = self._skill(season) + rng.normal(0, 0.6, len(self.roster(season)))
         return np.argsort(score)
 
     def _dnf_laps(
@@ -244,7 +292,7 @@ class SyntheticBackend:
             (self.seed, season, event_idx, _SESSION_IDS.get(session, 0), 7)
         )
         out = {}
-        for driver in self.drivers:
+        for driver in self.roster(season):
             if rng.random() < 0.10:  # ~2 DNFs per race
                 out[driver] = int(rng.integers(1, laps_total))
         return out
@@ -281,17 +329,18 @@ class SyntheticBackend:
         dnfs = self._dnf_laps(season, idx, session, laps_total)
         grid_order = self._race_order(season, idx, "Q")
         grid_of = {int(d): g + 1 for g, d in enumerate(grid_order)}
+        drivers = list(self.roster(season))
         rows = []
         pos = 1
         # finishers first in race order, then DNFs
         for d in order:
-            driver = self.drivers[int(d)]
+            driver = drivers[int(d)]
             if driver in dnfs:
                 continue
             rows.append((driver, grid_of[int(d)], pos, "Finished"))
             pos += 1
         for driver, lap in sorted(dnfs.items(), key=lambda kv: -kv[1]):
-            d = self.drivers.index(driver)
+            d = drivers.index(driver)
             rows.append((driver, grid_of[d], pos, "Accident"))
             pos += 1
         return pd.DataFrame(

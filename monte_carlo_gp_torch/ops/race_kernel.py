@@ -617,8 +617,8 @@ def race_counts(
         return counts
     with torch.cuda.device(pmat.device):
         warps_per_block, full_grid = launch_shape(pmat.device, d, warps_per_block)
-        sims_per_warp = library_tier(_lib, d)[1]
-        n_blocks = grid_blocks(n_sims, sims_per_warp, warps_per_block,
+        tier = library_tier(_lib, d)
+        n_blocks = grid_blocks(n_sims, tier[1], warps_per_block,
                                full_grid if n_blocks is None else n_blocks)
         if not 1 <= n_blocks <= 2**31 - 1:
             raise ValueError(f"n_blocks must be >= 1, got {n_blocks}")
@@ -630,12 +630,34 @@ def race_counts(
     if err != 0:
         raise RuntimeError(f"race kernel launch failed: CUDA error {err}")
     race_counts.launches += 1
-    if sims_per_warp > 1:
-        count("race.packed")
+    _count_launch(tier, [d], n_sims)
     return counts
 
 
 race_counts.launches = 0
+
+
+def slot_counts(tier: tuple[int, int], fields, n_sims: int) -> tuple[int, int]:
+    """(cars, slots) of a launch of `n_sims` simulations of races whose
+    fields hold `fields` drivers, on the instance `tier` (cars per lane,
+    simulations per warp; `library_tier`): the cars the races carry, and
+    the lanes x cars its warps issue, ceil(n_sims / sims_per_warp) warps of
+    32 lanes a race, padding slots and idle lanes included. Their ratio is
+    the launch's slot fill: 22 / 32 at 22 drivers, 60 / 64 at 20 on the
+    packed instance."""
+    cars_per_lane, sims_per_warp = tier
+    warps = -(-n_sims // sims_per_warp)
+    return n_sims * sum(fields), len(fields) * warps * 32 * cars_per_lane
+
+
+def _count_launch(tier: tuple[int, int], fields, n_sims: int) -> None:
+    """The counters of a launch on the card: `race.cars` and `race.slots`
+    (`slot_counts`), and `race.packed`, its races on the packed instance."""
+    cars, slots = slot_counts(tier, fields, n_sims)
+    count("race.cars", cars)
+    count("race.slots", slots)
+    if tier[1] > 1:
+        count("race.packed", len(fields))
 
 
 def _check_warps(warps_per_block: int | None) -> None:
@@ -729,6 +751,7 @@ def season_counts(
     sim_offset: int = 0,
     warps_per_block: int | None = None,
     blocks_per_race: int | None = None,
+    fields=None,
 ) -> torch.Tensor:
     """(R, D, D) [race, driver, position] finish counts of a season: race r
     runs simulations [sim_offset, sim_offset + n_sims_per_race) of the
@@ -742,7 +765,9 @@ def season_counts(
     depend on `warps_per_block` or `blocks_per_race` (default: the block
     shape and grid of `launch_shape` for each race, so a season holds many
     more blocks than the SMs take at once, and the blocks of short races
-    free their SMs for queued ones instead of leaving a ragged tail)."""
+    free their SMs for queued ones instead of leaving a ragged tail).
+    `fields`, the races' own widths before padding (default D each), only
+    feed the `race.cars` counter."""
     if pmat_s.device.type == "cpu":
         return season_counts_plain(
             pmat_s, scal_s, grid_log_s, race_laps, n_sims_per_race, seeds, sim_offset
@@ -765,8 +790,8 @@ def season_counts(
     laps_t = torch.tensor(laps, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         warps_per_block, full_grid = launch_shape(dev, d, warps_per_block, season=True)
-        sims_per_warp = library_tier(_lib, d)[1]
-        blocks_per_race = grid_blocks(n_sims_per_race, sims_per_warp, warps_per_block,
+        tier = library_tier(_lib, d)
+        blocks_per_race = grid_blocks(n_sims_per_race, tier[1], warps_per_block,
                                       full_grid if blocks_per_race is None else blocks_per_race)
         if not 1 <= blocks_per_race <= 2**31 - 1:
             raise ValueError(f"blocks_per_race must be >= 1, got {blocks_per_race}")
@@ -779,8 +804,7 @@ def season_counts(
     if err != 0:
         raise RuntimeError(f"season kernel launch failed: CUDA error {err}")
     season_counts.launches += 1
-    if sims_per_warp > 1:
-        count("race.packed", n_races)
+    _count_launch(tier, [d] * n_races if fields is None else fields, n_sims_per_race)
     return counts
 
 
@@ -863,6 +887,7 @@ def season_counts_sharded(
     n_sims_per_race: int,
     seeds,
     mesh: Mesh | None = None,
+    fields=None,
 ) -> torch.Tensor:
     """(R, D, D) counts of a season with every race's simulations split
     over `mesh` (default as in `race_counts_sharded`) and the process
@@ -873,14 +898,16 @@ def season_counts_sharded(
     tile grid across race boundaries instead; cutting every race gives each
     shard 1/W of every race, and the counts are the same bit for bit: those
     of one `season_counts` call, for any mesh. Counts in
-    `season_counts_sharded.launches` the calls that launched K2."""
+    `season_counts_sharded.launches` the calls that launched K2. `fields`
+    as in `season_counts`."""
     mesh = resolve_mesh(mesh, pmat_s.device)
     n_races, d, laps, seeds = _check_season_inputs(
         pmat_s, scal_s, grid_log_s, race_laps, n_sims_per_race, seeds
     )
 
     def launch(pmat_s, scal_s, grid_log_s, lo, n):
-        return season_counts(pmat_s, scal_s, grid_log_s, laps, n, seeds, sim_offset=lo)
+        return season_counts(pmat_s, scal_s, grid_log_s, laps, n, seeds, sim_offset=lo,
+                             fields=fields)
 
     counts, launched = _sharded_counts(
         launch, [pmat_s, scal_s, grid_log_s], n_sims_per_race, mesh, (n_races, d, d)
@@ -917,7 +944,8 @@ def run_monte_carlo_season(
     pmat_s, scal_s, grid_log_s, _ = pack_season_inputs(params_list)
     seeds = [philox.fold_in(season_seed, r) for r in range(len(params_list))]
     counts = season_counts_sharded(
-        pmat_s, scal_s, grid_log_s, race_laps_list, n_sims_per_race, seeds, mesh
+        pmat_s, scal_s, grid_log_s, race_laps_list, n_sims_per_race, seeds, mesh,
+        fields=[p.n_drivers for p in params_list],
     )
     return counts.to(torch.float32) / n_sims_per_race
 

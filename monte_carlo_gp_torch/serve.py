@@ -21,8 +21,11 @@ Endpoints:
                     (serve.handle: a POST; its serve.read, serve.predict with
                     serve.plan, the plan-cache lookup or prepare, and the
                     prepare's weekend.* spans beneath, serve.reply), and
-                    "frames": the parquet frame cache's {"read", "hit"}, and
-                    "elo_events": the event lists the Elo builds extracted
+                    "frames": the parquet frame cache's {"read", "hit"},
+                    "elo_events": the event lists the Elo builds extracted,
+                    and "kernels": the race kernels' counters on the card,
+                    {"cars", "slots", "packed"} (`ops/race_kernel.py`:
+                    cars / slots is the launches' slot fill)
     POST /predict   JSON request -> the predict_weekend result dict plus a
                     "server" block; the same seed gives the same
                     probabilities, bitwise
@@ -689,6 +692,8 @@ def make_handler(service: PredictionService):
                     "frames": {"read": counters.get("frames.read", 0),
                                "hit": counters.get("frames.hit", 0)},
                     "elo_events": counters.get("elo.events", 0),
+                    "kernels": {name: counters.get(f"race.{name}", 0)
+                                for name in ("cars", "slots", "packed")},
                 })
             else:
                 self._reply(404, {"error": f"no such endpoint: {self.path}"})

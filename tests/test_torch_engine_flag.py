@@ -159,7 +159,8 @@ def test_season_on_a_split_mesh_takes_one_launch_per_shard(weekend, monkeypatch)
     plans = [plan, plan]
     seen = []
     real = rk.season_counts_sharded
-    monkeypatch.setattr(rk, "season_counts_sharded", lambda *a: seen.append(a[-1].size) or real(*a))
+    monkeypatch.setattr(rk, "season_counts_sharded",
+                        lambda *a, **k: seen.append(a[-1].size) or real(*a, **k))
     split = tbt.simulate_season_plans(p, plans, 17, 250, mesh=make_mesh(devices=["cpu"] * 3))
     whole = tbt.simulate_season_plans(p, plans, 17, 250)
     # the one-shard default mesh takes the same entry

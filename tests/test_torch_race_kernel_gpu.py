@@ -229,6 +229,45 @@ def test_twenty_one_drivers_take_the_wide_instance(cuda_device):
     assert torch.equal(kernel, shaped)
 
 
+def _kernel_counters() -> dict:
+    return {k: RECORDER.counters.get(k, 0) for k in ("race.cars", "race.slots", "race.packed")}
+
+
+@pytest.mark.gpu
+def test_kernel_matches_plain_version_on_the_2026_grid_at_a_million_sims(cuda_device, tmp_path):
+    """K1 at the shape of the cell `serve.elo.2026.1m`: the synthetic world's
+    2026 Abu Dhabi fp2 plan (the entry list's 22 cars, 58 laps) at 1,048,576
+    simulations on `race_kernel<1>`, one simulation a warp, against its plain
+    version; the launch counts its cars and slots, 22 of every 32. Prints
+    K1's time."""
+    from monte_carlo_gp_torch.data.synthetic import SyntheticBackend
+    from monte_carlo_gp_torch.models.predictor import F1Predictor
+
+    n = 1 << 20
+    plan = F1Predictor(cache_dir=tmp_path, backend=SyntheticBackend(seed=2718),
+                       device="cpu").prepare_weekend(2026, "Abu Dhabi", prediction_point="fp2")
+    d, laps = len(plan.drivers), plan.total_laps
+    assert (d, laps, rk.kernel_tier(d)) == (22, 58, (1, 1))
+    pmat, scal, grid_log = rk.pack_inputs(plan.params.to(cuda_device))
+    rk.race_counts(pmat, scal, grid_log, laps, 1_024, seed=11)  # the library's load
+    before = _kernel_counters()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    kernel = rk.race_counts(pmat, scal, grid_log, laps, n, seed=11)
+    end.record()
+    torch.cuda.synchronize()
+    after = _kernel_counters()
+    assert {k: after[k] - before[k] for k in after} == {
+        "race.cars": 22 * n, "race.slots": 32 * n, "race.packed": 0}
+    plain = rk.race_counts_plain(pmat, scal, grid_log, laps, n, seed=11)
+    diff = (kernel.long() - plain).abs()
+    print(f"K1, 2026 Abu Dhabi fp2, {d} drivers x {laps} laps x {n} sims: "
+          f"{start.elapsed_time(end):.3f} ms; max |count - plain| {diff.max().item()} in "
+          f"{int((diff > 0).sum())} of {diff.numel()} cells")
+    assert diff.max().item() <= max(MAX_ABS_COUNT_ERR, MAX_ABS_PROB_ERR * n)
+    assert bool((kernel.sum(1) == n).all()) and bool((kernel.sum(0) == n).all())
+
+
 # ---- K2, the season kernel ----------------------------------------------------
 
 SEASON_SEED = 2024
@@ -328,6 +367,20 @@ def test_season_of_up_to_32_drivers_matches_plain_and_single_races(cuda_device):
     frequent race-control events."""
     assert rk.kernel_tier(32) == (1, 1)
     _check_wide_season((32, 26, 21, 24), [30, 44, 25, 12], 3_001, cuda_device, **WET_CHAOS)
+
+
+@pytest.mark.gpu
+def test_a_season_launch_counts_its_races_own_fields(cuda_device):
+    """`run_monte_carlo_season` on fields of 32, 26, 24 and 21 drivers padded
+    to 32: `race.cars` counts each race's own cars, `race.slots` the 32
+    lanes of every simulation's warp."""
+    widths, n = (32, 26, 24, 21), 3_001
+    params = [make_sim_params(**field(d), device=cuda_device) for d in widths]
+    before = _kernel_counters()
+    rk.run_monte_carlo_season(params, [30, 44, 25, 12], SEASON_SEED, n)
+    after = _kernel_counters()
+    assert {k: after[k] - before[k] for k in after} == {
+        "race.cars": n * sum(widths), "race.slots": len(widths) * n * 32, "race.packed": 0}
 
 
 @pytest.mark.gpu

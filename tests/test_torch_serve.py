@@ -481,6 +481,8 @@ def test_serve_http_end_to_end(tmp_path):
         assert stats["ok"] >= 2 and stats["rejected"] >= 1
         assert stats["plan_cache_hits"] >= 2
         assert stats["elo_events"] > 0  # the warm-up plan built the Elo ratings
+        # the plain version on the CPU launches no race kernel
+        assert stats["kernels"] == {"cars": 0, "slots": 0, "packed": 0}
 
         status, _ = _get(f"{base}/nope")
         assert status == 404

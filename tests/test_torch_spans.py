@@ -1,6 +1,6 @@
 """The port's span and counter recorder (`utils/profiling.py`): the spans of
 `prepare_weekend`, the server's handler and the walk-forward backtest, the
-frame cache's counters, and their readers (`--timings`, `/stats`, the
+frame cache's and the race kernels' counters, and their readers (`--timings`, `/stats`, the
 profile's own timeline).
 
 Off a profile a span keeps its aggregates and opens no `record_function`
@@ -26,6 +26,7 @@ from monte_carlo_gp_torch.__main__ import run
 from monte_carlo_gp_torch.data import loader
 from monte_carlo_gp_torch.data.synthetic import SyntheticBackend
 from monte_carlo_gp_torch.models.predictor import F1Predictor
+from monte_carlo_gp_torch.ops import race_kernel as rk
 from monte_carlo_gp_torch.utils.profiling import RECORDER, Phase, phase_report, span
 
 torch.set_num_threads(2)
@@ -135,6 +136,22 @@ def _post_and_serve(server, body: dict) -> dict:
     return got
 
 
+def _stats_served(server) -> dict:
+    """GET /stats from a client thread while this thread handles it."""
+    stats = {}
+
+    def client():
+        url = f"http://127.0.0.1:{server.server_address[1]}/stats"
+        with urllib.request.urlopen(url, timeout=60) as r:
+            stats.update(json.loads(r.read()))
+
+    thread = threading.Thread(target=client)
+    thread.start()
+    server.handle_request()
+    thread.join(timeout=60)
+    return stats
+
+
 def test_a_served_request_records_its_spans_under_one_request_id(tmp_path):
     """A request through `serve.make_handler`: `serve.handle` holds
     `serve.read`, `serve.predict` (holding `serve.plan`) and `serve.reply`,
@@ -158,17 +175,7 @@ def test_a_served_request_records_its_spans_under_one_request_id(tmp_path):
             "serve.handle"}
         assert events["serve.plan"].parent == "serve.predict"
 
-        stats = {}
-
-        def client():
-            url = f"http://127.0.0.1:{server.server_address[1]}/stats"
-            with urllib.request.urlopen(url, timeout=60) as r:
-                stats.update(json.loads(r.read()))
-
-        thread = threading.Thread(target=client)
-        thread.start()
-        server.handle_request()
-        thread.join(timeout=60)
+        stats = _stats_served(server)
     finally:
         server.server_close()
     handle = stats["spans"]["serve.handle"]
@@ -180,6 +187,28 @@ def test_a_served_request_records_its_spans_under_one_request_id(tmp_path):
     assert "weekend.prepare" in plan["children"]
     assert set(stats["frames"]) == {"read", "hit"}
     assert stats["plan_cache_hits"] >= 1
+
+
+def test_stats_serve_the_race_kernels_counters(tmp_path):
+    """`/stats` `kernels` holds the recorder's `race.cars`, `race.slots` and
+    `race.packed`, which only a launch on the card raises: a request that
+    the plain version serves on the CPU leaves them as they were, and what
+    a launch counts (`race_kernel._count_launch`) shows in the next read."""
+    service = serve.PredictionService(_predictor(tmp_path), default_simulations=64)
+    server = HTTPServer(("127.0.0.1", 0), serve.make_handler(service))
+    try:
+        first = _stats_served(server)["kernels"]
+        assert set(first) == {"cars", "slots", "packed"}
+        got = _post_and_serve(server, {"season": 2024, "race": "Bahrain", "seed": 3})
+        assert got["status"] == 200
+        assert _stats_served(server)["kernels"] == first
+        rk._count_launch(rk.kernel_tier(22), [22], 1 << 20)  # one-simulation-a-warp K1
+        rk._count_launch(rk.kernel_tier(20), [20, 18], 3_000)  # a packed K2 of two races
+        last = _stats_served(server)["kernels"]
+    finally:
+        server.server_close()
+    assert {k: last[k] - first[k] for k in last} == {
+        "cars": (22 << 20) + 38 * 3_000, "slots": (32 << 20) + 2 * 1_000 * 64, "packed": 2}
 
 
 def test_a_parquet_file_read_twice_counts_one_read_and_one_hit(tmp_path):
